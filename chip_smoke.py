@@ -2,27 +2,40 @@
 
     python3 chip_smoke.py        (from the repository root)
 
-Drives path_tracer_tpu_torch's main path on the card and holds its hand-
-written kernel against the kernel's plain PyTorch version:
+Drives path_tracer_tpu_torch's trace paths on the card and holds its three
+hand-written kernels against their plain PyTorch versions:
 
   1. the card's name and power limit (nvidia-smi);
   2. builds every CUDA kernel from path_tracer_tpu_torch/csrc/ (one
-     torch.utils.cpp_extension.load call, nvcc for sm_90a);
-  3. compiles the textured viking hall (detail=1) for 1920x1080;
-  4. inst_trace, the instanced BVH8 traversal kernel, against its plain
-     version on the 2,073,600 primary rays of `reset` and on the rays
-     after 2 rounds, for both leaf formats, bit for bit (the two take
-     the same per-ray traversal order); kernel time (CUDA events,
-     median of 7), plain time, and the kernel's bound from its counted
-     pops and rows;
-  5. the main path end to end: `render` at 1920x1080, 6 warm-up and 24
-     timed rounds, Mrays/s; the kernel's launch count must equal the
-     rounds run; then the time of `trace` alone, with and without the
-     ray sort, and, from a profile of 4 more rounds, the device time by
-     kernel;
-  6. the 192x108, 24-round, seed-123 viking frame through `render_scene`
-     against data/bench_goldens/3_viking_hall.npz within bench.py's
-     Monte-Carlo bands.
+     torch.utils.cpp_extension.load call, nvcc for sm_90a), and reads
+     registers, stack frame and spills of each from `nvcc -Xptxas=-v`;
+  3. compiles the textured viking hall (detail=1) for 1920x1080 in 'inst'
+     mode (two-level instanced tables) and in 'flat' mode (one
+     world-flattened BVH8), in each of the three leaf formats;
+  4. each kernel -- inst_trace, wide_trace5 (v5) and wide_trace (v3) --
+     against its plain version on the 2,073,600 primary rays of `reset`
+     and on the rays after 2 rounds, sorted as the main path sorts them,
+     for each leaf format, bit for bit (kernel and plain version take the
+     same per-ray traversal order): a 65,536-ray subset of every set, and
+     all rays of the bounce set in the default format; kernel time (CUDA
+     events, median of 7), plain time, and the kernel's bound from its
+     counted pops and rows;
+  5. the three kernels against one another on the bounce rays (hit masks
+     equal on > 99.5% of the rays, t within 5e-4 on > 99.9% of the rays
+     all three hit);
+  6. the 'inst' path end to end: `render` at 1920x1080, 6 warm-up and 24
+     timed rounds, Mrays/s; inst_trace's launch count must equal the
+     rounds run; the time of `trace` alone with and without the ray sort,
+     and, from a profile of 4 more rounds, the device time by kernel;
+  7. the same for the 'flat' path: wide_trace5 is launched once a round
+     and inst_trace not at all;
+  8. `trace(use_packet=False)`, the portable BVH2 traversal, against
+     `trace` through wide_trace5 on 65,536 bounce rays (same bounds);
+  9. the 192x108, 24-round, seed-123 viking frame through `render_scene`
+     in both modes against data/bench_goldens/3_viking_hall.npz within
+     bench.py's Monte-Carlo bands;
+ 10. a diffuse + metal scene of two mesh instances, a plane and a sphere
+     at 640x320, 16 rounds, in both modes.
 
 Every phase prints one line; any failure raises and exits non-zero. The
 last three lines are the card's name and power limit, the
@@ -30,8 +43,10 @@ last three lines are the card's name and power limit, the
 CUDA device it exits 1 and prints no result.
 """
 
+import contextlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -43,22 +58,28 @@ WIDTH, HEIGHT = 1920, 1080
 WARMUP_ROUNDS, TIMED_ROUNDS = 6, 24
 SUBSET = 65536          # rays the plain version checks per ray set
 TIMING_REPS = 7
+LEAF_FMTS = ('bary', 'mt', 'woop')
 # H100 SXM peaks: HBM bytes/s (NVIDIA data sheet) and float32 instructions/s
 # outside the tensor cores, 132 SMs x 128 lanes x 1.98 GHz. The data sheet's
-# 67e12 counts a fused multiply-add as two; the kernel is built with
+# 67e12 counts a fused multiply-add as two; the kernels are built with
 # -fmad=false, so each operation counted below is one instruction.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 33.5e12
-# float32 operations per unit of traversal work, counted from
-# csrc/trace_inst.cu (add, mul, min/max, compare and divide count one):
-# a ray's setup (3 safe reciprocals, 3 products, octant), an instance
-# entry (3x4 transform, reciprocals, products), an interior pop (8
-# children x 6 slab planes x (mul, sub), 6 min/max, 4 min/max, 4
-# compares) and one triangle of a leaf row in each format.
+# float32 operations per unit of traversal work, counted from the kernel
+# sources (add, mul, min/max, compare and divide count one): a ray's setup
+# (3 safe reciprocals, 3 products; trace_inst.cu also takes the octant), an
+# instance entry of trace_inst.cu (3x4 transform, reciprocals, products), an
+# interior pop (8 children x 6 slab planes x (mul, sub), 6 min/max, 4
+# min/max, 4 compares; the same traverse.cuh code in all three kernels) and
+# one triangle of a leaf row in each geometry format. trace_wide.cu tests
+# 'mt' after forming the two edges (6 subtractions) and lerps normal and uv
+# of a winner (2 + 5 x 5); its bound counts one lerp for each ray that hits.
 OPS_RAY = 15
 OPS_ENTER = 36
 OPS_INTERIOR = 8 * (12 + 6 + 4 + 4)
-OPS_TRIANGLE = {'bary': 36, 'mt': 55}
+OPS_TRIANGLE = {'bary': 36, 'mt': 55, 'woop': 45}
+OPS_TRIANGLE_V3 = OPS_TRIANGLE['mt'] + 6
+OPS_LERP_V3 = 27
 
 
 def log(phase, **fields):
@@ -90,35 +111,75 @@ def cuda_ms(fn, reps=TIMING_REPS):
     return statistics.median(times)
 
 
-def compare(name, kernel_out, plain_out):
-    """Hold the kernel's (t, face, fu, fv, inst) to the plain version's
-    bit for bit on every ray: both take each ray's own traversal order
-    and round every operation alike (the kernel is built with
-    -fmad=false), so tolerance zero. Returns (largest |difference| of t,
-    fu and fv, face agreement)."""
+def start_ptxas(csrc, flags, out_dir):
+    """One `nvcc -Xptxas=-v -c` per kernel source, all started together;
+    `read_ptxas` collects what they print."""
+    nvcc = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    os.makedirs(out_dir, exist_ok=True)
+    return {name: subprocess.Popen(
+        [nvcc, *flags, '-Xptxas=-v', '-c', os.path.join(csrc, name), '-o',
+         os.path.join(out_dir, name + '.ptxas.o')], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for name in sorted(os.listdir(csrc)) if name.endswith('.cu')}
+
+
+def read_ptxas(procs):
+    for name, proc in procs.items():
+        text = proc.communicate(timeout=600)[0]
+        found = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                          r'(\d+) bytes spill loads\s+ptxas info\s*: Used (\d+) '
+                          r'registers', text)
+        if proc.returncode != 0 or not found:
+            raise RuntimeError(f'nvcc -Xptxas=-v failed on {name}:\n{text}')
+        stack, stores, loads, regs = map(int, found.groups())
+        log('ptxas', source=name, registers=regs, stack_frame_bytes=stack,
+            spill_store_bytes=stores, spill_load_bytes=loads)
+
+
+def compare(kernel_name, set_name, kernel_out, plain_out):
+    """Hold a kernel's outputs (t, face, ...) to its plain version's bit
+    for bit on every ray: both take each ray's own traversal order and
+    round every operation alike (the kernels are built with -fmad=false),
+    so tolerance zero. Returns (largest |difference| over the float
+    outputs, face agreement)."""
     import torch
     same = [torch.equal(k, p) for k, p in zip(kernel_out, plain_out)]
     agree = (kernel_out[1] == plain_out[1]).float().mean().item()
-    max_err = max((kernel_out[j] - plain_out[j]).abs().max().item()
-                  for j in (0, 2, 3))
-    log('compare', set=name, rays=int(plain_out[1].numel()),
+    max_err = max((k - p).abs().max().item()
+                  for k, p in zip(kernel_out, plain_out) if k.is_floating_point())
+    log('compare', kernel=kernel_name, set=set_name,
+        rays=int(plain_out[1].numel()),
         hit_rays=int((plain_out[1] >= 0).sum()), face_agreement=agree,
-        max_abs_err=max_err, equal_t_face_fu_fv_inst=same)
+        max_abs_err=max_err, outputs=len(same), outputs_equal=same)
     if not (all(same) and bool((plain_out[1] >= 0).any())):
-        raise RuntimeError(f'inst_trace kernel disagrees with its plain '
-                           f'version on {name}')
+        raise RuntimeError(f'the {kernel_name} kernel disagrees with its '
+                           f'plain version on {set_name}')
     return max_err, agree
 
 
-def kernel_bound(fmt, counts, n_rays, table_bytes):
+def fraction_close(a, b, tol=5e-4):
+    """Share of elements with |a - b| <= tol + tol * |b|. Two traversals
+    whose triangle tests round differently (another leaf format, object
+    against world space) agree so on all but the few rays that pass
+    through an edge shared by two triangles, where one test may let the
+    ray through to what lies behind."""
+    return ((a - b).abs() <= tol + tol * b.abs()).float().mean().item()
+
+
+def kernel_bound(counts, n_rays, table_bytes, out_words, ops_triangle,
+                 tris_per_row, extra_ops=0):
     """Least time the card could take for this traversal: the larger of
-    the compulsory bytes (tables and rays read once, results written
-    once) over HBM bandwidth and the counted float32 operations over the
-    float32 peak. Returns (bound_ms, bound_by, bytes, ops)."""
-    interior, _leaf, rows, enter = (int(c.sum()) for c in counts)
+    the compulsory bytes (tables and the 7 ray rows read once, the
+    `out_words` result rows written once) over HBM bandwidth and the
+    counted float32 operations over the float32 peak. `counts` holds the
+    per-ray interior pops, leaf pops, leaf rows and, for inst_trace,
+    instance entries. Returns (bound_ms, bound_by, bytes, ops)."""
+    sums = [int(c.sum()) for c in counts]
+    interior, rows = sums[0], sums[2]
+    enter = sums[3] if len(sums) > 3 else 0
     ops = (n_rays * OPS_RAY + enter * OPS_ENTER + interior * OPS_INTERIOR
-           + rows * 8 * OPS_TRIANGLE[fmt])
-    nbytes = table_bytes + n_rays * (7 + 5) * 4
+           + rows * tris_per_row * ops_triangle + extra_ops)
+    nbytes = table_bytes + n_rays * (7 + out_words) * 4
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
     return (1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops
             else 'operations', nbytes, ops)
@@ -162,17 +223,34 @@ def main():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
         return 1
     repo = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, repo)
+    sys.path[:0] = [repo, os.path.join(repo, 'tests')]
     from path_tracer_tpu_torch import render_scene
-    from path_tracer_tpu_torch.core.constants import HIT_TIME_LIMIT
+    from path_tracer_tpu_torch.core.constants import (
+        HIT_TIME_LIMIT, SHAPE_INDEX_NONE)
     from path_tracer_tpu_torch.integrator import wavefront
     from path_tracer_tpu_torch.integrator.resolve import resolve
-    from path_tracer_tpu_torch.ops import build, trace_inst
+    from path_tracer_tpu_torch.ops import (
+        build, trace_inst, trace_packet, trace_wide)
     from path_tracer_tpu_torch.ops.intersect import (
         SceneLayout, intersect_analytic, make_hit, ray_sort_key, trace)
     from path_tracer_tpu_torch.scene import bvh8
-    from path_tracer_tpu_torch.scene.compile import compile_scene
-    from path_tracer_tpu_torch.scene.procedural import make_viking_hall_scene
+    from path_tracer_tpu_torch.scene import compile as scene_compile
+    from path_tracer_tpu_torch.scene import model, procedural
+    # The scene and the mode switch that the tests of both packages share.
+    from test_torch_cuda import flat_mode, two_instance_scene
+
+    compile_scene = scene_compile.compile_scene
+    make_viking_hall_scene = procedural.make_viking_hall_scene
+    kernels = (trace_inst, trace_packet, trace_wide)
+
+    def reset_launches():
+        for module in kernels:
+            module.reset_launches()
+
+    def launches():
+        return dict(inst_trace=trace_inst.launches,
+                    wide_trace5=trace_packet.launches,
+                    wide_trace=trace_wide.launches)
 
     dev = torch.device(DEVICE)
     card = card_line()
@@ -181,170 +259,322 @@ def main():
         cuda=torch.version.cuda, devices=torch.cuda.device_count())
 
     # -- 2. build -------------------------------------------------------
+    ptxas = start_ptxas(build.CSRC, build.NVCC_FLAGS, build.BUILD_DIR)
     t0 = time.perf_counter()
     build.load()
     log('build', seconds=time.perf_counter() - t0, ninja=shutil.which('ninja'),
         sources=sorted(os.listdir(build.CSRC)))
+    read_ptxas(ptxas)
 
-    # -- 3. compile the flagship scene, both leaf formats ---------------
-    packs = {}
-    for fmt in ('bary', 'mt'):
+    # -- 3. compile the flagship scene: both modes, three leaf formats ---
+    def nbytes(*tables):
+        return sum(x.numel() * x.element_size() for x in tables)
+
+    @contextlib.contextmanager
+    def leaf_format(fmt):
         saved = bvh8.LEAF_FMT
         bvh8.LEAF_FMT = fmt
         try:
-            t0 = time.perf_counter()
-            scene = make_viking_hall_scene(detail=1)
-            packed = compile_scene(scene, aspect_ratio=WIDTH / HEIGHT,
-                                   device=dev)
+            yield
         finally:
             bvh8.LEAF_FMT = saved
-        layout = SceneLayout.from_packed(packed)
-        tables = (packed.inst_nodes, packed.inst_tris, packed.inst_rows)
-        table_bytes = sum(x.numel() * x.element_size() for x in tables)
-        packs[fmt] = (packed, layout, table_bytes)
-        log('compile', leaf_fmt=fmt, seconds=time.perf_counter() - t0,
-            triangles=sum(len(m.faces) for m in scene.meshes),
-            node_rows=int(packed.inst_nodes.shape[0]),
-            leaf_rows=int(packed.inst_tris.shape[0]),
-            tlas_rows=layout.tlas_rows, table_bytes=table_bytes,
-            packet_mode=layout.packet_mode, atlas=layout.atlas_quad_fit)
-    packed, layout, table_bytes = packs[bvh8.LEAF_FMT]
+
+    packs, flats = {}, {}
+    for fmt in LEAF_FMTS:
+        for mode, store in (('inst', packs), ('flat', flats)):
+            t0 = time.perf_counter()
+            scene = make_viking_hall_scene(detail=1)
+            with leaf_format(fmt), (flat_mode(scene_compile) if mode == 'flat'
+                                    else contextlib.nullcontext()):
+                packed = compile_scene(scene, aspect_ratio=WIDTH / HEIGHT,
+                                       device=dev)
+            layout = SceneLayout.from_packed(packed)
+            if layout.packet_mode != mode:
+                raise RuntimeError(f'compiled {layout.packet_mode}, not {mode}')
+            store[fmt] = (packed, layout)
+            log('compile' if mode == 'inst' else 'flat_tables', leaf_fmt=fmt,
+                seconds=time.perf_counter() - t0,
+                triangles=sum(len(m.faces) for m in scene.meshes),
+                packet_mode=layout.packet_mode, atlas=layout.atlas_quad_fit,
+                tlas_rows=layout.tlas_rows,
+                inst_node_rows=int(packed.inst_nodes.shape[0]),
+                inst_leaf_rows=int(packed.inst_tris.shape[0]),
+                inst_table_bytes=nbytes(packed.inst_nodes, packed.inst_tris,
+                                        packed.inst_rows),
+                wide_nodes_g_rows=int(packed.wide_nodes_g.shape[0]),
+                wide_tris_g_rows=int(packed.wide_tris_g.shape[0]),
+                wide_tris_rows=int(packed.wide_tris.shape[0]),
+                v5_table_bytes=nbytes(packed.wide_nodes_g, packed.wide_tris_g),
+                v3_table_bytes=nbytes(packed.wide_nodes, packed.wide_tris),
+                wide_face_slots=layout.wide_face_slots)
+    packed, layout = packs[bvh8.LEAF_FMT]
+    flat, flat_layout = flats[bvh8.LEAF_FMT]
     config = wavefront.RenderConfig(width=WIDTH, height=HEIGHT)
 
-    # -- 4. kernel against its plain version ------------------------------
+    # -- 4. each kernel against its plain version -------------------------
     state = wavefront.reset(packed, config, seed=0)
     ray_sets = {'primary': (state['origin'].clone(), state['direction'].clone())}
     wavefront.render_rounds(packed, layout, config, state, 0.05, rounds=2,
                             sort_each_round=True)
     ray_sets['bounce'] = (state['origin'].clone(), state['direction'].clone())
+    del state
     n_rays = WIDTH * HEIGHT
     gen = torch.Generator().manual_seed(0)
     subset = torch.randperm(n_rays, generator=gen)[:SUBSET].to(dev)
 
-    max_err, agreement, record = 0.0, 1.0, {}
+    # The table sets of the three kernels: (kernel, plain version, tables,
+    # result rows written, triangles a row, operations a triangle).
+    def variants(fmt):
+        pk, lay = packs[fmt]
+        fl = flats[fmt][0]
+        inst_tables = (pk.inst_nodes, pk.inst_tris, pk.inst_rows)
+        yield ('inst_trace', fmt, inst_tables, 5, 8, OPS_TRIANGLE[fmt],
+               lambda *a, **k: trace_inst.inst_trace(
+                   *inst_tables, *a, lay.tlas_rows, leaf_fmt=fmt, **k),
+               lambda *a, **k: trace_inst.inst_trace_plain(
+                   *inst_tables, *a, lay.tlas_rows, leaf_fmt=fmt, **k))
+        v5_tables = (fl.wide_nodes_g, fl.wide_tris_g)
+        yield ('wide_trace5', fmt, v5_tables, 4, 8, OPS_TRIANGLE[fmt],
+               lambda *a, **k: trace_packet.wide_trace5(
+                   *v5_tables, *a, leaf_fmt=fmt, **k),
+               lambda *a, **k: trace_packet.wide_trace5_plain(
+                   *v5_tables, *a, leaf_fmt=fmt, **k))
+        if fmt == bvh8.LEAF_FMT:
+            # The v3 rows hold plain positions: one format.
+            v3_tables = (fl.wide_nodes, fl.wide_tris)
+            yield ('wide_trace', 'mt', v3_tables, 8, 4, OPS_TRIANGLE_V3,
+                   lambda *a, **k: trace_wide.wide_trace(*v3_tables, *a, **k),
+                   lambda *a, **k: trace_wide.wide_trace_plain(
+                       *v3_tables, *a, **k))
+
+    records = {}        # kernel name -> fields of the "kernels" line
+    hits = {}           # kernel name -> (t, face) on the sorted bounce rays
     for set_name, (o, d) in ray_sets.items():
         t_in = intersect_analytic(packed, layout, o, d,
                                   make_hit(n_rays, HIT_TIME_LIMIT, dev))['time']
-        unsorted_ms = cuda_ms(lambda: trace_inst.inst_trace(
-            packed.inst_nodes, packed.inst_tris, packed.inst_rows, o, d, t_in,
-            layout.tlas_rows))
+        unsorted_ms = {
+            'inst_trace': cuda_ms(lambda: trace_inst.inst_trace(
+                packed.inst_nodes, packed.inst_tris, packed.inst_rows, o, d,
+                t_in, layout.tlas_rows)),
+            'wide_trace5': cuda_ms(lambda: trace_packet.wide_trace5(
+                flat.wide_nodes_g, flat.wide_tris_g, o, d, t_in)),
+            'wide_trace': cuda_ms(lambda: trace_wide.wide_trace(
+                flat.wide_nodes, flat.wide_tris, o, d, t_in))}
         log('kernel_unsorted', set=set_name, leaf_fmt=bvh8.LEAF_FMT,
             rays=n_rays, ms=unsorted_ms)
-        # The main path feeds the kernel rays in ray_sort_key order.
+        # The main path feeds the kernels rays in ray_sort_key order.
         perm = torch.argsort(ray_sort_key(packed, o, d), stable=True)
-        o, d, t_in = (o[:, perm].contiguous(), d[:, perm].contiguous(),
-                      t_in[perm].contiguous())
-        so, sd, st = (o[:, subset].contiguous(), d[:, subset].contiguous(),
-                      t_in[subset].contiguous())
-        for fmt, (pk, lay, tb) in packs.items():
-            args = (pk.inst_nodes, pk.inst_tris, pk.inst_rows)
-            out = trace_inst.inst_trace(*args, o, d, t_in, lay.tlas_rows,
-                                        leaf_fmt=fmt, stats=True)
-            torch.cuda.synchronize()
-            counts = out[5]
-            plain = trace_inst.inst_trace_plain(*args, so, sd, st,
-                                                lay.tlas_rows, leaf_fmt=fmt)
-            err, agree = compare(f'{set_name}/{fmt}',
-                                 [x[subset] for x in out[:5]], plain)
-            max_err, agreement = max(max_err, err), min(agreement, agree)
-            ms = cuda_ms(lambda: trace_inst.inst_trace(
-                *args, o, d, t_in, lay.tlas_rows, leaf_fmt=fmt))
-            bound_ms, bound_by, nbytes, ops = kernel_bound(fmt, counts,
-                                                           n_rays, tb)
-            per_ray = [c.float().mean().item() for c in counts]
-            log('kernel', set=set_name, leaf_fmt=fmt, rays=n_rays, ms=ms,
-                mrays_s=n_rays / ms / 1e3, bound_ms=bound_ms,
-                bound_by=bound_by, compulsory_bytes=nbytes, f32_ops=ops,
-                per_ray_interior_pops=per_ray[0], per_ray_leaf_pops=per_ray[1],
-                per_ray_leaf_rows=per_ray[2], per_ray_instance_entries=per_ray[3],
-                row_bytes_popped=512 * int(counts[0].sum() + counts[2].sum()),
-                hit_fraction=(out[1] >= 0).float().mean().item())
-            if set_name == 'bounce' and fmt == bvh8.LEAF_FMT:
-                # The main path's steady state: time the plain version on
-                # the same 2,073,600 rays, once, and check all of them.
+        rays = (o[:, perm].contiguous(), d[:, perm].contiguous(),
+                t_in[perm].contiguous())
+        sub_rays = tuple(x[..., subset].contiguous() for x in rays)
+        for fmt in LEAF_FMTS:
+            for (name, leaf_fmt, tables, out_words, per_row, ops_tri, kernel,
+                 plain) in variants(fmt):
+                *out, counts = kernel(*rays, stats=True)
                 torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                plain_full = trace_inst.inst_trace_plain(
-                    *args, o, d, t_in, lay.tlas_rows, leaf_fmt=fmt)
-                torch.cuda.synchronize()
-                plain_ms = 1e3 * (time.perf_counter() - t0)
-                err, agree = compare(f'{set_name}/{fmt}/all', out[:5], plain_full)
-                max_err, agreement = max(max_err, err), min(agreement, agree)
-                record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by=bound_by)
-                log('plain', set=set_name, leaf_fmt=fmt, rays=n_rays,
-                    ms=plain_ms)
-    del state, ray_sets
+                label = f'{set_name}/{leaf_fmt}'
+                err, agree = compare(name, label,
+                                     [x[..., subset] for x in out],
+                                     plain(*sub_rays))
+                ms = cuda_ms(lambda: kernel(*rays))
+                n_hit = int((out[1] >= 0).sum())
+                bound_ms, bound_by, bound_bytes, ops = kernel_bound(
+                    counts, n_rays, nbytes(*tables), out_words, ops_tri,
+                    per_row, OPS_LERP_V3 * n_hit if name == 'wide_trace' else 0)
+                per_ray = [c.float().mean().item() for c in counts]
+                log('kernel', kernel=name, set=set_name, leaf_fmt=leaf_fmt,
+                    rays=n_rays, ms=ms, mrays_s=n_rays / ms / 1e3,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    compulsory_bytes=bound_bytes, f32_ops=ops,
+                    per_ray_interior_pops=per_ray[0],
+                    per_ray_leaf_pops=per_ray[1], per_ray_leaf_rows=per_ray[2],
+                    per_ray_instance_entries=(per_ray[3] if len(per_ray) > 3
+                                              else None),
+                    row_bytes_popped=512 * int(counts[0].sum() + counts[2].sum()),
+                    hit_fraction=n_hit / n_rays)
+                rec = records.setdefault(name, dict(max_abs_err=0.0,
+                                                    agreement=1.0))
+                rec['max_abs_err'] = max(rec['max_abs_err'], err)
+                rec['agreement'] = min(rec['agreement'], agree)
+                if set_name == 'bounce' and fmt == bvh8.LEAF_FMT:
+                    # The main path's steady state: time the plain version
+                    # on the same 2,073,600 rays, once, and check all of them.
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    plain_full = plain(*rays)
+                    torch.cuda.synchronize()
+                    plain_ms = 1e3 * (time.perf_counter() - t0)
+                    err, agree = compare(name, label + '/all', out, plain_full)
+                    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by,
+                               max_abs_err=max(rec['max_abs_err'], err),
+                               agreement=min(rec['agreement'], agree))
+                    log('plain', kernel=name, set=set_name, leaf_fmt=leaf_fmt,
+                        rays=n_rays, ms=plain_ms)
+                    del plain_full
+                del out, counts
+        if set_name == 'bounce':
+            bounce_rays = rays
 
-    # -- 5. main path end to end ------------------------------------------
-    trace_inst.reset_launches()
-    state = wavefront.render(packed, config, WARMUP_ROUNDS, seed=1,
-                             layout=layout)
+    # -- 5. the three kernels against one another --------------------------
+    # wide_trace sits on no branch of `trace`: this direct call on the flat
+    # scene's tables, at the main path's width, is the path that runs it.
+    reset_launches()
+    hits = {
+        'inst_trace': trace_inst.inst_trace(
+            packed.inst_nodes, packed.inst_tris, packed.inst_rows,
+            *bounce_rays, layout.tlas_rows)[:2],
+        'wide_trace5': trace_packet.wide_trace5(
+            flat.wide_nodes_g, flat.wide_tris_g, *bounce_rays)[:2],
+        'wide_trace': trace_wide.wide_trace(
+            flat.wide_nodes, flat.wide_tris, *bounce_rays)[:2]}
+    torch.cuda.synchronize()
+    direct_launches = launches()
+    masks = [face >= 0 for _, face in hits.values()]
+    mask_agreement = ((masks[0] == masks[1]) & (masks[1] == masks[2])
+                      ).float().mean().item()
+    all_hit = masks[0] & masks[1] & masks[2]
+    ts = [t[all_hit] for t, _ in hits.values()]
+    t_agreement = min(fraction_close(ts[0], x) for x in ts[1:])
+    log('cross_check', set='bounce', rays=n_rays, hit_mask_agreement=mask_agreement,
+        all_hit=int(all_hit.sum()), t_agreement=t_agreement,
+        max_t_difference=max((ts[0] - x).abs().max().item() for x in ts[1:]),
+        launches=direct_launches)
+    if not (mask_agreement > 0.995 and t_agreement > 0.999
+            and min(direct_launches.values()) == 1):
+        raise RuntimeError('the three kernels disagree on the bounce rays')
+    records['wide_trace']['launches'] = direct_launches['wide_trace']
+    del hits, masks, ts, ray_sets
+
+    # -- 6, 7. the two paths end to end -------------------------------------
+    def render_path(mode, pk, lay, kernel_name):
+        reset_launches()
+        state = wavefront.render(pk, config, WARMUP_ROUNDS, seed=1, layout=lay)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = wavefront.render(pk, config, TIMED_ROUNDS, layout=lay,
+                                 state=state)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counted = launches()
+        rounds = WARMUP_ROUNDS + TIMED_ROUNDS
+        for name, count in counted.items():
+            if count != (rounds if name == kernel_name else 0):
+                raise RuntimeError(f"the '{mode}' render launched {name} "
+                                   f'{count} times in {rounds} rounds')
+        accum = state['accum']
+        if not (bool(torch.isfinite(accum['xyz']).all())
+                and float(accum['count'].sum()) > 0):
+            raise RuntimeError('the accumulator is not finite or holds no sample')
+        image = resolve(accum, WIDTH, HEIGHT, lane=state['lane'])
+        if tuple(image.shape) != (HEIGHT, WIDTH, 3) or not bool(
+                torch.isfinite(image).all()):
+            raise RuntimeError(f'bad image {tuple(image.shape)}')
+        round_ms = 1e3 * elapsed / TIMED_ROUNDS
+        trace_ms, trace_unsorted_ms = (
+            cuda_ms(lambda: trace(pk, lay, state['origin'], state['direction'],
+                                  sort_rays=sort_rays))
+            for sort_rays in (True, False))
+        log('render', packet_mode=mode, width=WIDTH, height=HEIGHT,
+            rounds=TIMED_ROUNDS, seconds=elapsed,
+            mrays_s=n_rays * TIMED_ROUNDS / elapsed / 1e6, round_ms=round_ms,
+            trace_ms=trace_ms, trace_unsorted_ms=trace_unsorted_ms,
+            samples=float(accum['count'].sum()), launches=counted,
+            image_mean=float(image.mean()),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30, card=card)
+        records[kernel_name]['launches'] = counted[kernel_name]
+
+        # Where a round's device time goes: kernels by name over 4 rounds.
+        busy_ms, by_name, n_kernels = device_profile(lambda: wavefront.render(
+            pk, config, 4, layout=lay, state=state))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        log('profile', packet_mode=mode, rounds=4,
+            device_busy_ms_per_round=busy_ms / 4,
+            kernels_per_round=n_kernels / 4,
+            idle_share_vs_unprofiled_round=1.0 - busy_ms / 4 / round_ms,
+            traversal_kernel_ms_per_round=sum(
+                v for k, v in by_name.items() if kernel_name + '_kernel' in k) / 4,
+            top_kernels_ms_per_round=[[k, v / 4, v / busy_ms] for k, v in top])
+        return state
+
+    render_path('inst', packed, layout, 'inst_trace')
+    state = render_path('flat', flat, flat_layout, 'wide_trace5')
+
+    # -- 8. the portable BVH2 traversal -----------------------------------
+    o, d = (state[k][:, subset].contiguous() for k in ('origin', 'direction'))
+    del state
+    kernel_hit = trace(flat, flat_layout, o, d)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = wavefront.render(packed, config, TIMED_ROUNDS, layout=layout,
-                             state=state)
+    portable_hit = trace(flat, flat_layout, o, d, use_packet=False)
     torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = trace_inst.launches
-    rounds = WARMUP_ROUNDS + TIMED_ROUNDS
-    if launches != rounds:
-        raise RuntimeError(f'inst_trace launched {launches} times in '
-                           f'{rounds} rounds')
-    accum = state['accum']
-    if not (bool(torch.isfinite(accum['xyz']).all())
-            and float(accum['count'].sum()) > 0):
-        raise RuntimeError('the accumulator is not finite or holds no sample')
-    image = resolve(accum, WIDTH, HEIGHT, lane=state['lane'])
-    if tuple(image.shape) != (HEIGHT, WIDTH, 3) or not bool(
-            torch.isfinite(image).all()):
-        raise RuntimeError(f'bad image {tuple(image.shape)}')
-    round_ms = 1e3 * elapsed / TIMED_ROUNDS
-    trace_ms, trace_unsorted_ms = (
-        cuda_ms(lambda: trace(packed, layout, state['origin'],
-                              state['direction'], sort_rays=sort_rays))
-        for sort_rays in (True, False))
-    log('render', width=WIDTH, height=HEIGHT, rounds=TIMED_ROUNDS,
-        seconds=elapsed, mrays_s=n_rays * TIMED_ROUNDS / elapsed / 1e6,
-        round_ms=round_ms, trace_ms=trace_ms,
-        trace_unsorted_ms=trace_unsorted_ms,
-        samples=float(accum['count'].sum()), launches=launches,
-        image_mean=float(image.mean()),
-        peak_gib=torch.cuda.max_memory_allocated() / 2**30, card=card)
+    portable_ms = 1e3 * (time.perf_counter() - t0)
+    shape_agreement = (kernel_hit['shape'] == portable_hit['shape']
+                       ).float().mean().item()
+    t_agreement = fraction_close(kernel_hit['time'], portable_hit['time'])
+    log('portable', rays=SUBSET, ms=portable_ms,
+        kernel_path_ms=cuda_ms(lambda: trace(flat, flat_layout, o, d)),
+        shape_agreement=shape_agreement, t_agreement=t_agreement,
+        max_t_difference=(kernel_hit['time'] - portable_hit['time']
+                          ).abs().max().item(),
+        hit_fraction=(kernel_hit['shape'] != SHAPE_INDEX_NONE
+                      ).float().mean().item())
+    if not (shape_agreement > 0.995 and t_agreement > 0.999):
+        raise RuntimeError('the portable traversal disagrees with wide_trace5')
 
-    # Where a round's device time goes: kernels by name over 4 rounds.
-    busy_ms, by_name, n_kernels = device_profile(lambda: wavefront.render(
-        packed, config, 4, layout=layout, state=state))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    log('profile', rounds=4, device_busy_ms_per_round=busy_ms / 4,
-        kernels_per_round=n_kernels / 4,
-        idle_share_vs_unprofiled_round=1.0 - busy_ms / 4 / round_ms,
-        inst_trace_ms_per_round=sum(v for k, v in by_name.items()
-                                    if 'inst_trace' in k) / 4,
-        top_kernels_ms_per_round=[[k, v / 4, v / busy_ms] for k, v in top])
-
-    # -- 6. golden frame ------------------------------------------------------
+    # -- 9. golden frame, both modes ----------------------------------------
     golden = np.load(os.path.join(repo, 'data', 'bench_goldens',
                                   '3_viking_hall.npz'))
-    img = render_scene(make_viking_hall_scene(detail=1), 192, 108,
-                       spp_rounds=24, seed=123, device=dev).cpu().numpy()
     ref = golden['image']
     noise, bias_floor = float(golden['noise']), float(golden['bias'])
-    rel = float(np.abs(img - ref).mean() / (ref.mean() + 1e-3))
-    bias = float(abs(img.mean() - ref.mean()) / (ref.mean() + 1e-3))
     rel_lim, bias_lim = max(1.6 * noise, 0.02), max(4.0 * bias_floor, 0.02)
-    log('golden', name='3_viking_hall', rel_err=rel, rel_limit=rel_lim,
-        bias=bias, bias_limit=bias_lim)
-    if img.shape != ref.shape or not (rel < rel_lim and bias < bias_lim):
-        raise RuntimeError('the viking golden frame is outside its bands')
+    for mode in ('inst', 'flat'):
+        scene = make_viking_hall_scene(detail=1)
+        with (flat_mode(scene_compile) if mode == 'flat'
+              else contextlib.nullcontext()):
+            img = render_scene(scene, 192, 108, spp_rounds=24, seed=123,
+                               device=dev).cpu().numpy()
+        rel = float(np.abs(img - ref).mean() / (ref.mean() + 1e-3))
+        bias = float(abs(img.mean() - ref.mean()) / (ref.mean() + 1e-3))
+        log('golden', name='3_viking_hall', packet_mode=scene.packet_mode,
+            rel_err=rel, rel_limit=rel_lim, bias=bias, bias_limit=bias_lim)
+        if (scene.packet_mode != mode or img.shape != ref.shape
+                or not (rel < rel_lim and bias < bias_lim)):
+            raise RuntimeError(f"the '{mode}' viking golden frame is outside "
+                               'its bands')
+
+    # -- 10. diffuse + metal, both modes ----------------------------------------
+    frames = {}
+    for mode in ('inst', 'flat'):
+        scene = two_instance_scene(model, procedural)
+        with (flat_mode(scene_compile) if mode == 'flat'
+              else contextlib.nullcontext()):
+            frames[mode] = render_scene(scene, 640, 320, spp_rounds=16, seed=5,
+                                        device=dev).cpu().numpy()
+        if scene.packet_mode != mode:
+            raise RuntimeError(f'compiled {scene.packet_mode}, not {mode}')
+    mean = frames['inst'].mean()
+    rel = float(np.abs(frames['flat'] - frames['inst']).mean() / (mean + 1e-3))
+    bias = float(abs(frames['flat'].mean() - mean) / (mean + 1e-3))
+    finite = all(bool(np.isfinite(f).all()) for f in frames.values())
+    log('metal', width=640, height=320, rounds=16, finite=finite,
+        mean_inst=float(mean), mean_flat=float(frames['flat'].mean()),
+        flat_vs_inst_rel_err=rel, flat_vs_inst_bias=bias)
+    if not (finite and mean > 0.01 and frames['flat'].mean() > 0.01
+            and rel < 0.02 and bias < 0.02):
+        raise RuntimeError('the diffuse + metal frames are black, not finite '
+                           'or differ between the two modes')
 
     print(card)
+    sources = dict(
+        inst_trace=('trace_inst.cu', 'path_tracer_tpu/ops/trace_inst.py:149'),
+        wide_trace5=('trace_packet.cu', 'path_tracer_tpu/ops/trace_packet.py:85'),
+        wide_trace=('trace_wide.cu', 'path_tracer_tpu/ops/trace_wide.py:97'))
     print(json.dumps({'kernels': [dict(
-        name='inst_trace', route='cuda',
-        source='path_tracer_tpu_torch/csrc/trace_inst.cu',
-        replaces='path_tracer_tpu/ops/trace_inst.py:149',
-        launches=launches, max_abs_err=max_err, agreement=agreement,
-        library_ms=None, **record)]}))
+        name=name, route='cuda',
+        source='path_tracer_tpu_torch/csrc/' + sources[name][0],
+        replaces=sources[name][1], library_ms=None, **records[name])
+        for name in sources]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}))

@@ -1,8 +1,10 @@
 """path_tracer_tpu_torch: the spectral wavefront path tracer on PyTorch + CUDA.
 
-A port of the JAX package path_tracer_tpu to PyTorch, with the
-traversal of the two-level instanced BVH8 as a hand-written CUDA kernel
-for Hopper (csrc/trace_inst.cu). The module tree mirrors the JAX
+A port of the JAX package path_tracer_tpu to PyTorch, with the mesh
+traversals as hand-written CUDA kernels for Hopper: the two-level
+instanced BVH8 (csrc/trace_inst.cu) and the world-flattened BVH8 with
+geometry-only or attribute-carrying leaves (csrc/trace_packet.cu,
+csrc/trace_wide.cu). The module tree mirrors the JAX
 package's (core, scene, ops, models, integrator, utils). Entry points
 run on the card (device='cuda') unless the caller asks for the CPU.
 """

@@ -1,7 +1,8 @@
-"""Vectorized random sampling: RNG, directions, vMF.
+"""Vectorized random sampling: RNG, directions, vMF, GGX.
 
-Port of path_tracer_tpu/core/sampling.py (the parts the diffuse surface
-path draws from). Channels-first: directions are (3, N), uniforms (N,).
+Port of path_tracer_tpu/core/sampling.py (the parts the surface path
+draws from). Channels-first: directions are (3, N), GGX alphas (2, N),
+uniforms (N,).
 
 The RNG is the same per-lane PCG-style counter hash as the JAX package
 and the reference (common.glsl.inc:189-203). torch has no uint32
@@ -102,3 +103,61 @@ def von_mises_fisher_pdf(kappa, mu, direction):
     pdf = c * torch.exp(safe_kappa * (cos_theta - 1.0))
     return torch.where(kappa < EPSILON, torch.full_like(pdf, 1.0 / (4.0 * PI)),
                        pdf)
+
+
+# --- GGX microfacet model with anisotropic roughness ----------------------
+
+
+def ggx_roughness_alpha(roughness, anisotropy):
+    """2D GGX alpha (common.glsl.inc:281-288); (N,), (N,) -> (2, N)."""
+    s = 1.0 - anisotropy
+    alpha_x = roughness * roughness * torch.sqrt(2.0 / (1.0 + s * s))
+    return torch.stack([alpha_x, s * alpha_x], dim=0)
+
+
+def ggx_smith_g1(direction, alpha):
+    """Smith G1 for anisotropic GGX (common.glsl.inc:294-301).
+    direction: (3, N) in tangent space, alpha: (2, N) -> (N,)."""
+    dx2 = direction[0] * direction[0]
+    dy2 = direction[1] * direction[1]
+    dz2 = direction[2] * direction[2]
+    dz_safe = torch.clamp(dz2, min=EPSILON)
+    tan_term = (alpha[0] * alpha[0] * dx2 + alpha[1] * alpha[1] * dy2) / dz_safe
+    g1 = 2.0 / (1.0 + torch.sqrt(1.0 + tan_term))
+    return torch.where(dz2 < EPSILON, torch.zeros_like(g1), g1)
+
+
+def ggx_visible_normal(direction, alpha, u1, u2):
+    """Heitz VNDF sampling of the GGX distribution (common.glsl.inc:306-346).
+    direction: (3, N) view in tangent space, alpha: (2, N) -> (3, N)."""
+    vz = safe_normalize(vec3(alpha[0] * direction[0], alpha[1] * direction[1],
+                             direction[2]))
+    len_sq = vz[0] * vz[0] + vz[1] * vz[1]
+    inv_len = 1.0 / torch.sqrt(torch.clamp(len_sq, min=1e-20))
+    zero = torch.zeros_like(len_sq)
+    one = torch.ones_like(len_sq)
+    vx = torch.where(len_sq > 0.0,
+                     vec3(-vz[1] * inv_len, vz[0] * inv_len, zero),
+                     vec3(one, zero, zero))
+    vy = cross(vz, vx)
+
+    r = torch.sqrt(u1)
+    phi = TAU * u2
+    s = 0.5 * (1.0 + vz[2])
+    tx = r * torch.cos(phi)
+    ty = ((1.0 - s) * torch.sqrt(torch.clamp(1.0 - tx * tx, min=0.0))
+          + s * r * torch.sin(phi))
+    tz = torch.sqrt(torch.clamp(1.0 - tx * tx - ty * ty, min=0.0))
+    n = tx * vx + ty * vy + tz * vz
+    return safe_normalize(vec3(alpha[0] * n[0], alpha[1] * n[1],
+                               torch.clamp(n[2], min=0.0)))
+
+
+def ggx_distribution(normal, alpha):
+    """Anisotropic GGX NDF D(m) (common.glsl.inc:349-354); (N,)."""
+    inv_ax = 1.0 / alpha[0]
+    inv_ay = 1.0 / alpha[1]
+    b = (normal[0] * normal[0] * inv_ax * inv_ax
+         + normal[1] * normal[1] * inv_ay * inv_ay
+         + normal[2] * normal[2])
+    return 1.0 / (PI * alpha[0] * alpha[1] * b * b)

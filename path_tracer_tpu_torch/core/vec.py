@@ -66,6 +66,14 @@ def sum4(s):
     return torch.sum(s, dim=0)
 
 
+def transform_point(m, p):
+    """Apply a matrix (m[i][j]: scalars or (N,) rows) to (3, N) points."""
+    return torch.stack([
+        m[i][0] * p[0] + m[i][1] * p[1] + m[i][2] * p[2] + m[i][3]
+        for i in range(3)
+    ], dim=0)
+
+
 def transform_vector(m, v):
     """Apply the rotation/scale part of m (m[i][j]: scalars or (N,)
     rows) to (3, N) vectors."""

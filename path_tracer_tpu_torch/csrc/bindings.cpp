@@ -13,7 +13,23 @@ extern "C" int inst_trace_launch(const float* nodes, const float* tris,
                                  float* fv_out, int* inst_out, int* stats,
                                  void* stream);
 
+extern "C" int wide_trace5_launch(const float* nodes, const float* tris,
+                                  const float* origin, const float* direction,
+                                  const float* t_in, long long n, int leaf_fmt,
+                                  float* t_out, int* face_out, float* fu_out,
+                                  float* fv_out, int* stats, void* stream);
+extern "C" int wide_trace_launch(const float* nodes, const float* tris,
+                                 const float* origin, const float* direction,
+                                 const float* t_in, long long n, float* t_out,
+                                 int* face_out, float* normal_out,
+                                 float* uv_out, int* shape_out, int* stats,
+                                 void* stream);
+
 namespace {
+
+int* stats_ptr(torch::Tensor& stats) {
+  return stats.numel() ? stats.data_ptr<int>() : nullptr;
+}
 
 // Queues csrc/trace_inst.cu on `stream` (a cudaStream_t as an integer);
 // an empty `stats` tensor means no per-ray counters. Returns the
@@ -31,7 +47,37 @@ int inst_trace(const torch::Tensor& nodes, const torch::Tensor& tris,
       static_cast<int>(tlas_rows), static_cast<int>(leaf_fmt),
       t.data_ptr<float>(), face.data_ptr<int>(), fu.data_ptr<float>(),
       fv.data_ptr<float>(), inst.data_ptr<int>(),
-      stats.numel() ? stats.data_ptr<int>() : nullptr,
+      stats_ptr(stats), reinterpret_cast<void*>(stream));
+}
+
+// Queues csrc/trace_packet.cu; arguments as inst_trace without the
+// instance rows.
+int wide_trace5(const torch::Tensor& nodes, const torch::Tensor& tris,
+                const torch::Tensor& origin, const torch::Tensor& direction,
+                const torch::Tensor& t_in, int64_t leaf_fmt, torch::Tensor& t,
+                torch::Tensor& face, torch::Tensor& fu, torch::Tensor& fv,
+                torch::Tensor& stats, int64_t stream) {
+  return wide_trace5_launch(
+      nodes.data_ptr<float>(), tris.data_ptr<float>(),
+      origin.data_ptr<float>(), direction.data_ptr<float>(),
+      t_in.data_ptr<float>(), t_in.numel(), static_cast<int>(leaf_fmt),
+      t.data_ptr<float>(), face.data_ptr<int>(), fu.data_ptr<float>(),
+      fv.data_ptr<float>(), stats_ptr(stats),
+      reinterpret_cast<void*>(stream));
+}
+
+// Queues csrc/trace_wide.cu; normal is (3, N), uv (2, N).
+int wide_trace(const torch::Tensor& nodes, const torch::Tensor& tris,
+               const torch::Tensor& origin, const torch::Tensor& direction,
+               const torch::Tensor& t_in, torch::Tensor& t,
+               torch::Tensor& face, torch::Tensor& normal, torch::Tensor& uv,
+               torch::Tensor& shape, torch::Tensor& stats, int64_t stream) {
+  return wide_trace_launch(
+      nodes.data_ptr<float>(), tris.data_ptr<float>(),
+      origin.data_ptr<float>(), direction.data_ptr<float>(),
+      t_in.data_ptr<float>(), t_in.numel(), t.data_ptr<float>(),
+      face.data_ptr<int>(), normal.data_ptr<float>(), uv.data_ptr<float>(),
+      shape.data_ptr<int>(), stats_ptr(stats),
       reinterpret_cast<void*>(stream));
 }
 
@@ -40,4 +86,8 @@ int inst_trace(const torch::Tensor& nodes, const torch::Tensor& tris,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("inst_trace", &inst_trace,
         "Instanced BVH8 closest-hit traversal (csrc/trace_inst.cu)");
+  m.def("wide_trace5", &wide_trace5,
+        "Flat BVH8 traversal, geometry-only leaves (csrc/trace_packet.cu)");
+  m.def("wide_trace", &wide_trace,
+        "Flat BVH8 traversal, attributes in the leaves (csrc/trace_wide.cu)");
 }

@@ -41,30 +41,20 @@
 // are converted with an exact float -> int conversion, never by
 // reinterpreting the bits.
 
-#include <cuda_runtime.h>
+#include "traverse.cuh"
 
 namespace {
 
+using namespace traverse;
+
 constexpr int STACK_DEPTH = 128;
 constexpr int INST_BASE = 1 << 22;
-constexpr int LEAF_ROW_LIMIT = 1 << 19;
 constexpr int LEAF_ROWS = 2;  // bvh8.LEAF_MAX / 8 rows of a leaf at most
-constexpr int ROW = 128;
-constexpr int META_LANE = 48;
-constexpr int PERM_LANE = 65;
-constexpr int GEOM_STRIDE = 16;
-constexpr float BIG = 1.0e9f;
-constexpr float PASS_LIMIT = 0.5f * BIG;
-constexpr int LEAF_FMT_MT = 0;
 
 struct Ray {
   float o[3], d[3], inv[3], oinv[3];
   int oct;
 };
-
-__device__ __forceinline__ float safe_inv(float d) {
-  return 1.0f / (fabsf(d) < 1e-8f ? (d >= 0.0f ? 1e-8f : -1e-8f) : d);
-}
 
 __device__ __forceinline__ void finish_ray(Ray& r) {
 #pragma unroll
@@ -75,12 +65,6 @@ __device__ __forceinline__ void finish_ray(Ray& r) {
   // Octant bit set <=> direction component negative (bvh8 PERM_LANE).
   r.oct = ((r.d[0] < 0.0f) << 2) | ((r.d[1] < 0.0f) << 1) | (r.d[2] < 0.0f);
 }
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ int exact_int(float f) { return __float2int_rn(f); }
 
 __global__ void __launch_bounds__(128)
 inst_trace_kernel(const float* __restrict__ nodes,
@@ -144,32 +128,7 @@ inst_trace_kernel(const float* __restrict__ nodes,
       }
       const int oct = world ? w.oct : r.oct;
       const float* row = nodes + (size_t)v * ROW;
-      float b[48];
-#pragma unroll
-      for (int j = 0; j < 12; ++j) {
-        const float4 x = ld4(row + 4 * j);
-        b[4 * j] = x.x;
-        b[4 * j + 1] = x.y;
-        b[4 * j + 2] = x.z;
-        b[4 * j + 3] = x.w;
-      }
-      unsigned hit = 0;
-#pragma unroll
-      for (int ch = 0; ch < 8; ++ch) {
-        const float tx0 = b[ch] * inv[0] - oinv[0];
-        const float ty0 = b[8 + ch] * inv[1] - oinv[1];
-        const float tz0 = b[16 + ch] * inv[2] - oinv[2];
-        const float tx1 = b[24 + ch] * inv[0] - oinv[0];
-        const float ty1 = b[32 + ch] * inv[1] - oinv[1];
-        const float tz1 = b[40 + ch] * inv[2] - oinv[2];
-        const float entry = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                                  fminf(tz0, tz1));
-        const float exit_ = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                                  fmaxf(tz0, tz1));
-        const bool ok = (exit_ >= entry) && (exit_ > 0.0f) && (entry < t) &&
-                        (entry < PASS_LIMIT);
-        hit |= (unsigned)ok << ch;
-      }
+      const unsigned hit = slab_hits(row, inv, oinv, t);
       if (hit) {
         const int perm = exact_int(__ldg(row + PERM_LANE + oct));
 #pragma unroll
@@ -193,45 +152,9 @@ inst_trace_kernel(const float* __restrict__ nodes,
         const float* row = tris + (size_t)(leaf_row + rr) * ROW;
 #pragma unroll 2
         for (int k = 0; k < 8; ++k) {
-          const float* g = row + GEOM_STRIDE * k;
-          const float4 g0 = ld4(g), g1 = ld4(g + 4), g2 = ld4(g + 8);
           float ft, hu, hv;
-          bool ok;
-          if (leaf_fmt == LEAF_FMT_MT) {
-            // p0 = g0.xyz, e1 = (g0.w, g1.xy), e2 = (g1.zw, g2.x).
-            const float e1x = g0.w, e1y = g1.x, e1z = g1.y;
-            const float e2x = g1.z, e2y = g1.w, e2z = g2.x;
-            const float pvx = r.d[1] * e2z - r.d[2] * e2y;
-            const float pvy = r.d[2] * e2x - r.d[0] * e2z;
-            const float pvz = r.d[0] * e2y - r.d[1] * e2x;
-            const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-            ok = fabsf(det) >= 1e-9f;
-            const float inv_det = 1.0f / (ok ? det : 1.0f);
-            const float sx = r.o[0] - g0.x, sy = r.o[1] - g0.y,
-                        sz = r.o[2] - g0.z;
-            hu = inv_det * (sx * pvx + sy * pvy + sz * pvz);
-            const float qx = sy * e1z - sz * e1y;
-            const float qy = sz * e1x - sx * e1z;
-            const float qz = sx * e1y - sy * e1x;
-            hv = inv_det * (r.d[0] * qx + r.d[1] * qy + r.d[2] * qz);
-            ft = inv_det * (e2x * qx + e2y * qy + e2z * qz);
-            ok = ok && (hu >= 0.0f) && (hu <= 1.0f) && (hv >= 0.0f) &&
-                 (hu + hv <= 1.0f);
-            ok = ok && (ft >= 0.0f) && (ft < t) && (count > 8 * rr + k);
-          } else {
-            // 'bary': n = g0.xyz, d0 = g0.w, gu|cu = g1, gv|cv = g2. Padded
-            // slots are all zero: ft = 0/0 = NaN fails every comparison.
-            const float nd = g0.x * r.d[0] + g0.y * r.d[1] + g0.z * r.d[2];
-            const float no = g0.x * r.o[0] + g0.y * r.o[1] + g0.z * r.o[2];
-            ft = (g0.w - no) / nd;
-            const float hx = r.o[0] + ft * r.d[0];
-            const float hy = r.o[1] + ft * r.d[1];
-            const float hz = r.o[2] + ft * r.d[2];
-            hu = g1.x * hx + g1.y * hy + g1.z * hz + g1.w;
-            hv = g2.x * hx + g2.y * hy + g2.z * hz + g2.w;
-            ok = (hu >= 0.0f) && (hv >= 0.0f) && (hu + hv <= 1.0f) &&
-                 (ft >= 0.0f) && (ft < t);
-          }
+          const bool ok = leaf_triangle(leaf_fmt, row + GEOM_STRIDE * k, r.o,
+                                        r.d, t, count > 8 * rr + k, ft, hu, hv);
           if (ok) {
             t = ft;
             face = (leaf_row + rr) * 8 + k;

@@ -2,7 +2,9 @@
 
 Port of the surface path of path_tracer_tpu/integrator/scatter.py
 (reference src/integrator/basic_scatter.glsl:44-310). Every lane
-computes the skybox and surface branches and selects by mask.
+computes the skybox and surface branches and selects by mask; the BSDF
+is that of the lane's material among the models models/dispatch.py
+holds, and a Dirac BSDF (a mirror-smooth metal) takes no light sample.
 
 Participating media and nested dielectrics are not ported in this slice
 (ROADMAP.md): a layout with `scene_has_medium` or `has_transmissive`
@@ -150,7 +152,7 @@ def scatter(packed, state, ray_origin, ray_direction, hit, rng: Rng,
 
     exterior_ior = torch.ones((4,) + view[0].shape, device=view.device)
     ctx = fetch_ctx(packed, hit['material'], lam, hit['uv'], exterior_ior,
-                    layout.materials_textured, layout.atlas_size,
+                    layout.materials_textured, layout.atlas_size, types,
                     layout.texture_filter_modes, layout.textured_attrs,
                     layout.atlas_quad_fit)
 

@@ -56,10 +56,11 @@ class RenderConfig:
 
 
 def wants_sort(config: RenderConfig, layout) -> bool:
-    """The per-round coherence sort runs whenever the instanced mesh
-    trace does; analytic-only scenes have no traversal to feed."""
+    """The per-round coherence sort runs whenever a mesh traversal
+    kernel does, in either packet mode; analytic-only scenes have no
+    traversal to feed."""
     return bool(config.sort_rays and layout is not None
-                and layout.instance_slots and layout.packet_mode == 'inst')
+                and layout.instance_slots)
 
 
 def reset(packed, config: RenderConfig, seed, slot=None):

@@ -10,7 +10,11 @@ from __future__ import annotations
 
 import torch
 
-from ..core.constants import TEXTURE_FLAG_FILTER_NEAREST, TEXTURE_INDEX_NONE
+from ..core.constants import (
+    MATERIAL_TYPE_BASIC_METAL,
+    TEXTURE_FLAG_FILTER_NEAREST,
+    TEXTURE_INDEX_NONE,
+)
 from ..core.spectrum import sample_parametric_spectrum
 
 
@@ -124,25 +128,60 @@ def texturable_reflectance(packed, beta, texture_index, lam, uv, textured,
     return torch.where(has_texture, value * tex_value, value)
 
 
+def texturable_value(packed, value, texture_index, uv, textured, atlas_size,
+                     filter_modes=(True, True), use_quad=False):
+    """Scalar texturable attribute (scene.glsl.inc:292-302): the value
+    times the texture's first channel where the lane has a texture."""
+    if not textured:
+        return value
+    has_texture = texture_index != TEXTURE_INDEX_NONE
+    tex = sample_texture(packed, texture_index, uv, atlas_size, filter_modes,
+                         use_quad)[0]
+    return torch.where(has_texture, value * tex, value)
+
+
 def col(table_column, i):
     """Gather a material column ((M,) or (C, M)) at lane indices i."""
     return table_column[..., i]
 
 
 def fetch_ctx(packed, material_index, lam, uv, exterior_ior,
-              textured=True, atlas_size=8, filter_modes=(True, True),
-              textured_attrs=('base',), use_quad=False):
-    """Gather the material attributes the basic diffuse model reads for
-    the given lanes (material_index: (N,) slots into the table)."""
+              textured=True, atlas_size=8, types=(),
+              filter_modes=(True, True), textured_attrs=('base',),
+              use_quad=False):
+    """Gather the material attributes the ported models read for the
+    given lanes (material_index: (N,) slots into the table). `types` is
+    the static set of material types in the scene: the metal model's
+    columns are gathered only where it is present."""
     m = packed.materials
     i = material_index
-    return dict(
+
+    def reflectance(spectrum, texture, attr):
+        return texturable_reflectance(
+            packed, col(spectrum, i), col(texture, i), lam, uv,
+            textured and attr in textured_attrs, atlas_size, filter_modes,
+            use_quad)
+
+    def value(column, texture, attr):
+        return texturable_value(
+            packed, col(column, i), col(texture, i), uv,
+            textured and attr in textured_attrs, atlas_size, filter_modes,
+            use_quad)
+
+    ctx = dict(
         type=col(m.type, i),
         lam=lam,
         uv=uv,
         exterior_ior=exterior_ior,
-        base_reflectance=texturable_reflectance(
-            packed, col(m.base_spectrum, i), col(m.base_texture, i), lam, uv,
-            textured and 'base' in textured_attrs, atlas_size, filter_modes,
-            use_quad),
+        base_reflectance=reflectance(m.base_spectrum, m.base_texture, 'base'),
     )
+    if MATERIAL_TYPE_BASIC_METAL in types:
+        ctx.update(
+            specular_reflectance=reflectance(
+                m.specular_spectrum, m.specular_texture, 'specular'),
+            roughness=value(m.roughness, m.roughness_texture, 'roughness'),
+            roughness_anisotropy=value(
+                m.roughness_anisotropy, m.roughness_anisotropy_texture,
+                'roughness_anisotropy'),
+        )
+    return ctx

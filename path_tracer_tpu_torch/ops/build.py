@@ -3,8 +3,9 @@
 Every source under path_tracer_tpu_torch/csrc/ builds at first use in
 one `torch.utils.cpp_extension.load` call into <repo>/build/kernels/
 (listed in .gitignore): the CUDA C++ kernels (*.cu, each with a plain C
-launch function) compile with nvcc for sm_90a, and bindings.cpp, the
-one file that includes torch/extension.h, binds them. ninja compiles
+launch function; traverse.cuh holds what they share) compile with nvcc
+for sm_90a, and bindings.cpp, the one file that includes
+torch/extension.h, binds them. ninja compiles
 the sources in parallel and rebuilds only what changed.
 
 Flags: no `--use_fast_math` (its approximate division and flush-to-zero

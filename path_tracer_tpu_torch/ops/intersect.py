@@ -1,14 +1,15 @@
-"""Ray-scene intersection: analytic primitives, the instanced mesh trace,
+"""Ray-scene intersection: analytic primitives, the mesh traversals,
 hit attribute resolution.
 
-Port of the parts of path_tracer_tpu/ops/intersect.py that the main path
-runs (behavioral reference: reference src/scene/scene.glsl.inc:
-304-611). Analytic shapes are intersected as dense (S, N) batches per
-shape type; mesh instances go through the two-level BVH8 traversal of
-ops/trace_inst.py ('inst' packet mode, the mode compile.py picks for
-every scene with a mesh). The portable BVH2 traversal of the JAX
-package is not ported yet (ROADMAP.md), so a mesh scene compiled in
-another mode raises.
+Port of path_tracer_tpu/ops/intersect.py (behavioral reference:
+reference src/scene/scene.glsl.inc:304-611). Analytic shapes are
+intersected as dense (S, N) batches per shape type. Mesh instances go
+through one kernel call for all instances: the two-level BVH8 traversal
+of ops/trace_inst.py in 'inst' packet mode (the mode compile.py picks
+for every scene with a mesh) or the world-flattened BVH8 traversal of
+ops/trace_packet.py in 'flat' mode; or, on request, through the
+portable per-instance BVH2 traversal `traverse_mesh_bvh`, which is
+plain PyTorch on either device.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Tuple
 import torch
 
 from ..core.constants import (
+    EPSILON,
     HIT_TIME_LIMIT,
     INFINITY,
     MATERIAL_TYPE_BASIC_TRANSLUCENT,
@@ -34,13 +36,18 @@ from ..core.constants import (
 from ..core.sampling import compute_tangent_vector
 from ..core.vec import (
     cross,
+    dot,
     safe_normalize,
     take_matrix,
     transform_normal,
+    transform_point,
     transform_vector,
     vec3,
 )
-from . import trace_inst
+from . import trace_inst, trace_packet
+
+MAX_LEAF_FACES = 4   # faces per BVH2 leaf (scene/bvh.py)
+STACK_DEPTH = 48     # per-ray stack of the portable BVH2 traversal
 
 
 def ray_sort_key(packed, origin, direction):
@@ -77,7 +84,7 @@ class SceneLayout:
     """Static scene structure, built on the host from the scene document
     (compile_scene attaches it as packed.host_layout). Fields as in the
     JAX package's SceneLayout, minus its TPU-budget gates (wide_fit,
-    inst_fit) and the v5 table size."""
+    inst_fit): the card has no table budget to fit."""
 
     analytic_buckets: Tuple[Tuple[int, int], ...]  # (shape_type, padded K)
     instance_slots: int
@@ -90,6 +97,9 @@ class SceneLayout:
     texture_filter_modes: Tuple[bool, bool] = (True, True)
     # Bilinear tap strategy: 'quad', 'pair' or False (4 corner taps).
     atlas_quad_fit: object = False
+    # Triangle slots of the trace tables in use (leaf rows x 8, padding
+    # included).
+    wide_face_slots: int = 0
     has_opacity: bool = False
     packet_mode: str = 'flat'
     tlas_rows: int = 0
@@ -160,10 +170,14 @@ def build_layout_host(scene, packed):
         for attr, fields in attr_fields.items():
             if any(getattr(material, f, None) is not None for f in fields):
                 textured_set.add(attr)
+    packet_mode = getattr(scene, 'packet_mode', 'flat')
+    leaf_table = (packed.inst_tris if packet_mode == 'inst'
+                  else packed.wide_tris_g)
     return SceneLayout(
         analytic, slots, _bucket(index),
-        packet_mode=getattr(scene, 'packet_mode', 'flat'),
+        packet_mode=packet_mode,
         tlas_rows=getattr(scene, 'packet_tlas_rows', 0),
+        wide_face_slots=int(leaf_table.shape[0]) * 8,
         has_skybox_texture=scene.root.skybox_texture is not None,
         materials_textured=bool(textured_set),
         textured_attrs=tuple(sorted(textured_set)),
@@ -287,10 +301,156 @@ def intersect_analytic(packed, layout: SceneLayout, origin, direction, hit):
     )
 
 
+# --- Portable mesh BVH2 traversal -------------------------------------------
+
+
+def intersect_aabb(origin, inv_dir, reach, lo, hi):
+    """Slab test (common.glsl.inc:153-185). origin/inv_dir/lo/hi: (3, N)
+    or broadcastable. Returns the entry time, INFINITY on a miss."""
+    entry = exit_ = None
+    for c in range(3):
+        t0 = (lo[c] - origin[c]) * inv_dir[c]
+        t1 = (hi[c] - origin[c]) * inv_dir[c]
+        near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        entry = near if entry is None else torch.maximum(entry, near)
+        exit_ = far if exit_ is None else torch.minimum(exit_, far)
+    miss = (exit_ < entry) | (exit_ <= 0.0) | (entry >= reach)
+    return torch.where(miss, torch.full_like(entry, INFINITY), entry)
+
+
+def moller_trumbore(origin, direction, p0, p1, p2, t_max):
+    """Moller-Trumbore triangle test (scene.glsl.inc:304-334). All
+    inputs (3, N); returns (t, u, v, valid)."""
+    e1 = p1 - p0
+    e2 = p2 - p0
+    pvec = cross(direction, e2)
+    det = dot(e1, pvec)
+    valid = torch.abs(det) >= EPSILON
+    inv_det = 1.0 / torch.where(valid, det, torch.ones_like(det))
+    s = origin - p0
+    u = inv_det * dot(s, pvec)
+    qvec = cross(s, e1)
+    v = inv_det * dot(direction, qvec)
+    t = inv_det * dot(e2, qvec)
+    valid = (valid & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+             & (t >= 0.0) & (t <= t_max))
+    return t, u, v, valid
+
+
+def traverse_mesh_bvh(packed, root, origin, direction, hit, shape_index):
+    """BVH2 traversal of one mesh instance over all rays, near child
+    first (scene.glsl.inc:336-399).
+
+    origin/direction: (3, N), already in the mesh's object space (the
+    direction is not renormalized, so t stays in world units). Every ray
+    owns a current node and an (N, STACK_DEPTH) stack; each iteration
+    advances the rays that still have a node or a stack entry: a leaf
+    tests its up to MAX_LEAF_FACES faces, an interior node descends into
+    its nearer child and pushes the farther one. `root` may be the
+    degenerate root of a padded instance slot, whose inverted bounds no
+    ray enters. Returns the updated hit record; mesh hits carry their
+    barycentrics in `coords` and the BVH2 face in `primitive`.
+    """
+    dev = origin.device
+    n = origin.shape[1]
+    inv_dir = 1.0 / torch.where(torch.abs(direction) < 1e-12,
+                                torch.full_like(direction, 1e-12), direction)
+    node_min, node_max = packed.mesh_node_min, packed.mesh_node_max  # (3, B)
+    node_a, node_b = packed.mesh_node_a, packed.mesh_node_b
+    face_pos = packed.face_positions          # (3 vertices, 3 components, F)
+
+    time = hit['time'].clone()
+    primitive = hit['primitive'].clone()
+    u = hit['coords'][1].clone()
+    v = hit['coords'][2].clone()
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    root = int(root)
+    root_entry = intersect_aabb(origin, inv_dir, time,
+                                node_min[:, root, None], node_max[:, root, None])
+    node = torch.where(root_entry < INFINITY,
+                       torch.full((n,), root, dtype=torch.int64, device=dev),
+                       torch.full((n,), -1, dtype=torch.int64, device=dev))
+    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
+    depth = torch.zeros(n, dtype=torch.int64, device=dev)
+
+    while True:
+        act = torch.nonzero((node >= 0) | (depth > 0)).squeeze(1)
+        if act.numel() == 0:
+            break
+        cur, dep = node[act], depth[act]
+        pop = cur < 0
+        dep = torch.where(pop, dep - 1, dep)
+        cur = torch.where(pop, stack[act, dep.clamp(max=STACK_DEPTH - 1)], cur)
+        a = node_a[cur].to(torch.int64)
+        b = node_b[cur].to(torch.int64)
+        is_leaf = b > 0
+        nxt = torch.full_like(cur, -1)
+
+        if bool(is_leaf.any()):
+            idx = act[is_leaf]
+            first, end = a[is_leaf], b[is_leaf]
+            o, d = origin[:, idx], direction[:, idx]
+            tb, pb, ub, vb, fb = (time[idx], primitive[idx], u[idx], v[idx],
+                                  found[idx])
+            for k in range(MAX_LEAF_FACES):
+                face = first + k
+                face_ok = face < end
+                face = torch.where(face_ok, face, torch.zeros_like(face))
+                ft, fu, fv, valid = moller_trumbore(
+                    o, d, face_pos[0][:, face], face_pos[1][:, face],
+                    face_pos[2][:, face], tb)
+                take = face_ok & valid & (ft < tb)
+                tb = torch.where(take, ft, tb)
+                pb = torch.where(take, face.to(pb.dtype), pb)
+                ub = torch.where(take, fu, ub)
+                vb = torch.where(take, fv, vb)
+                fb = fb | take
+            time[idx], primitive[idx], u[idx], v[idx], found[idx] = (
+                tb, pb, ub, vb, fb)
+
+        inner = ~is_leaf
+        if bool(inner.any()):
+            idx = act[inner]
+            child_a = a[inner]
+            child_b = child_a + 1
+            o, inv, reach = origin[:, idx], inv_dir[:, idx], time[idx]
+            ta = intersect_aabb(o, inv, reach, node_min[:, child_a],
+                                node_max[:, child_a])
+            tb = intersect_aabb(o, inv, reach, node_min[:, child_b],
+                                node_max[:, child_b])
+            a_first = ta <= tb
+            near = torch.where(a_first, child_a, child_b)
+            far = torch.where(a_first, child_b, child_a)
+            t_near, t_far = torch.minimum(ta, tb), torch.maximum(ta, tb)
+            nxt[inner] = torch.where(t_near < INFINITY, near,
+                                     torch.full_like(near, -1))
+            d_in = dep[inner]
+            push = (t_far < INFINITY) & (d_in < STACK_DEPTH)
+            stack[idx[push], d_in[push]] = far[push]
+            dep[inner] = d_in + push.to(torch.int64)
+
+        node[act], depth[act] = nxt, dep
+
+    coords = torch.stack([1.0 - u - v, u, v], dim=0)
+    return dict(
+        time=torch.where(found, time, hit['time']),
+        shape=torch.where(found, torch.full_like(hit['shape'], int(shape_index)),
+                          hit['shape']),
+        shape_type=torch.where(
+            found, torch.full_like(hit['shape_type'], SHAPE_TYPE_MESH_INSTANCE),
+            hit['shape_type']),
+        primitive=torch.where(found, primitive, hit['primitive']),
+        coords=torch.where(found, coords, hit['coords']),
+    )
+
+
 def resolve_hit_attributes(packed, layout: SceneLayout, origin, direction, hit):
     """World normal, tangent frame, UV and material of each hit
-    (scene.glsl.inc:532-611). Mesh hits carry their world normal and uv
-    from the instanced trace (hit['mesh_normal'], hit['mesh_uv'])."""
+    (scene.glsl.inc:532-611). Mesh hits of the kernel paths carry their
+    world normal and uv (hit['mesh_normal'], hit['mesh_uv']); those of
+    the portable traversal carry barycentrics in `coords` and the face
+    in `primitive`, and their vertex attributes are gathered here."""
     n = origin.shape[1]
     shape = hit['shape']
     valid = shape != SHAPE_INDEX_NONE
@@ -303,8 +463,17 @@ def resolve_hit_attributes(packed, layout: SceneLayout, origin, direction, hit):
     stype = hit['shape_type']
     zeros = torch.zeros(n, dtype=torch.float32, device=origin.device)
     ones = torch.ones_like(zeros)
-    mesh_normal_world = hit.get('mesh_normal', torch.zeros_like(origin))
-    mesh_uv = hit.get('mesh_uv', torch.zeros((2, n), device=origin.device))
+    if 'mesh_normal' in hit:
+        mesh_normal_obj = None
+        mesh_normal_world = hit['mesh_normal']
+        mesh_uv = hit['mesh_uv']
+    else:
+        fv = packed.face_vertices[:, hit['primitive']]          # (3, N)
+        n0, n1, n2 = (packed.vertex_normals[:, fv[k]] for k in range(3))
+        mesh_normal_obj = safe_normalize(
+            n0 * coords[0] + n1 * coords[1] + n2 * coords[2])
+        uv0, uv1, uv2 = (packed.vertex_uvs[:, fv[k]] for k in range(3))
+        mesh_uv = uv0 * coords[0] + uv1 * coords[1] + uv2 * coords[2]
 
     plane_normal_obj = vec3(zeros, zeros, ones)
     sphere_normal_obj = coords
@@ -324,8 +493,13 @@ def resolve_hit_attributes(packed, layout: SceneLayout, origin, direction, hit):
     analytic_normal_obj = torch.where(
         is_plane, plane_normal_obj,
         torch.where(is_sphere, sphere_normal_obj, cube_normal_obj))
-    normal = torch.where(is_mesh, mesh_normal_world,
-                         transform_normal(analytic_normal_obj, from_world))
+    if mesh_normal_obj is None:
+        normal = torch.where(is_mesh, mesh_normal_world,
+                             transform_normal(analytic_normal_obj, from_world))
+    else:
+        normal = transform_normal(
+            torch.where(is_mesh, mesh_normal_obj, analytic_normal_obj),
+            from_world)
 
     mesh_tangent = compute_tangent_vector(normal)
     plane_tangent_obj = vec3(ones, zeros, zeros)
@@ -385,27 +559,27 @@ def _unpermute(perm, *rows):
 
 
 def trace(packed, layout: SceneLayout, origin, direction,
-          duration=HIT_TIME_LIMIT, sort_rays=False):
+          duration=HIT_TIME_LIMIT, use_packet=None, sort_rays=False):
     """Full trace: intersect every shape, resolve hit attributes.
 
     origin/direction: (3, N). Returns the resolved hit SoA dict; lanes
     that hit nothing have shape == SHAPE_INDEX_NONE and time == duration.
 
-    Mesh instances go through ops.trace_inst.inst_trace in one call for
-    all instances. sort_rays=True feeds it rays in ray_sort_key order
-    (a stable argsort) and scatters its outputs back to lane order: the
-    results do not change, only which rays share a warp.
+    use_packet None or True: mesh instances go through the kernel of
+    the layout's packet mode in one call for all instances
+    (ops.trace_inst.inst_trace in 'inst' mode, ops.trace_packet.
+    wide_trace5 in 'flat' mode); there is no table budget on the card
+    that could rule the kernel out. sort_rays=True feeds it rays in
+    ray_sort_key order (a stable argsort) and scatters its outputs back
+    to lane order: the results do not change, only which rays share a
+    warp. use_packet False: the portable BVH2 traversal, one instance
+    slot after the other.
     """
     n = origin.shape[1]
     hit = make_hit(n, duration, origin.device)
     hit = intersect_analytic(packed, layout, origin, direction, hit)
 
-    if layout.instance_slots:
-        if layout.packet_mode != 'inst':
-            raise NotImplementedError(
-                'mesh scenes trace only through the instanced tables '
-                "(packet_mode 'inst'); the portable BVH2 traversal is "
-                'queued in ROADMAP.md (Queue 1)')
+    if layout.instance_slots and use_packet in (None, True):
         k_origin, k_direction, k_tin = origin, direction, hit['time']
         if sort_rays:
             perm = torch.argsort(ray_sort_key(packed, origin, direction),
@@ -413,15 +587,26 @@ def trace(packed, layout: SceneLayout, origin, direction,
             k_origin, k_direction, k_tin = _permute(perm, origin, direction,
                                                     hit['time'])
             k_origin, k_direction = k_origin.contiguous(), k_direction.contiguous()
-        t, face, fu, fv, inst = trace_inst.inst_trace(
-            packed.inst_nodes, packed.inst_tris, packed.inst_rows,
-            k_origin, k_direction, k_tin.contiguous(),
-            tlas_rows=layout.tlas_rows)
+        if layout.packet_mode == 'inst':
+            out = trace_inst.inst_trace(
+                packed.inst_nodes, packed.inst_tris, packed.inst_rows,
+                k_origin, k_direction, k_tin.contiguous(),
+                tlas_rows=layout.tlas_rows)
+        else:
+            out = trace_packet.wide_trace5(
+                packed.wide_nodes_g, packed.wide_tris_g, k_origin,
+                k_direction, k_tin.contiguous())
         if sort_rays:
-            t, face, fu, fv, inst = _unpermute(perm, t, face, fu, fv, inst)
-        normal, uv, shp = trace_inst.resolve_inst_attributes(
-            packed.inst_attrs, packed.inst_aux, face, fu, fv, inst,
-            n_instances=layout.instance_slots)
+            out = _unpermute(perm, *out)
+        if layout.packet_mode == 'inst':
+            t, face, fu, fv, inst = out
+            normal, uv, shp = trace_inst.resolve_inst_attributes(
+                packed.inst_attrs, packed.inst_aux, face, fu, fv, inst,
+                n_instances=layout.instance_slots)
+        else:
+            t, face, fu, fv = out
+            normal, uv, shp = trace_packet.resolve_wide_attributes(
+                packed.wide_attrs, face, fu, fv)
         improved = face >= 0
         hit = dict(
             time=torch.where(improved, t, hit['time']),
@@ -429,11 +614,20 @@ def trace(packed, layout: SceneLayout, origin, direction,
             shape_type=torch.where(
                 improved, torch.full_like(hit['shape_type'], SHAPE_TYPE_MESH_INSTANCE),
                 hit['shape_type']),
-            # Face slot into the instanced tables.
+            # Face slot into the trace tables.
             primitive=torch.where(improved, face, hit['primitive']),
             coords=hit['coords'],
             mesh_normal=torch.where(improved, safe_normalize(normal),
                                     torch.zeros_like(normal)),
             mesh_uv=torch.where(improved, uv, torch.zeros_like(uv)),
         )
+    else:
+        # Padded slots point at the degenerate root, which no ray enters.
+        for k in range(layout.instance_slots):
+            shape_index = int(packed.portable_inst_shape[k])
+            from_world = packed.shape_object_from_world[:, :, shape_index]
+            hit = traverse_mesh_bvh(
+                packed, int(packed.portable_inst_root[k]),
+                transform_point(from_world, origin),
+                transform_vector(from_world, direction), hit, shape_index)
     return resolve_hit_attributes(packed, layout, origin, direction, hit)

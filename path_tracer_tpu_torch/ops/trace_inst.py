@@ -6,7 +6,8 @@ rays against the tables that scene/compile.py builds in 'inst' mode:
   nodes      (W, 128) f32  [TLAS rows | rebased per-mesh BVH8 rows]
                            (row layout in scene/bvh8.py)
   tris       (R, 128) f32  object-space leaf rows, 8 triangles each in
-                           the bvh8.LEAF_FMT format ('bary' or 'mt')
+                           the bvh8.LEAF_FMT format ('bary', 'mt' or
+                           'woop')
   inst_rows  (I, 128) f32  object_from_world 3x4 in lanes 0..11, mesh
                            root row in lane 12
 
@@ -27,7 +28,7 @@ STACK_DEPTH = 128
 INST_BASE = 1 << 22      # stack entries >= INST_BASE are instance tags
 PASS_LIMIT = 0.5 * bvh8.BIG
 LEAF_ROWS = bvh8.LEAF_MAX // 8
-_LEAF_FMTS = {'mt': 0, 'bary': 1}
+LEAF_FMTS = {'mt': 0, 'bary': 1, 'woop': 2}
 
 # Kernel launches made through inst_trace (CUDA tensors only).
 launches = 0
@@ -38,7 +39,7 @@ def reset_launches():
     launches = 0
 
 
-def _safe_inv(d):
+def safe_inv(d):
     tiny = torch.where(d >= 0, torch.full_like(d, 1e-8), torch.full_like(d, -1e-8))
     return 1.0 / torch.where(torch.abs(d) < 1e-8, tiny, d)
 
@@ -64,7 +65,7 @@ def inst_trace_plain(nodes, tris, inst_rows, origin, direction, t_in,
     n = origin.shape[1]
     w_o = origin.T.contiguous()
     w_d = direction.T.contiguous()
-    w_inv = _safe_inv(w_d)
+    w_inv = safe_inv(w_d)
     w_p = w_o * w_inv
     w_oct = _octant(w_d)
     r_o, r_d, r_inv, r_p, r_oct = (w_o.clone(), w_d.clone(), w_inv.clone(),
@@ -106,7 +107,7 @@ def inst_trace_plain(nodes, tris, inst_rows, origin, direction, t_in,
                               for j in range(3)], 1)
             rd = torch.stack([m[:, 4 * j] * d[:, 0] + m[:, 4 * j + 1] * d[:, 1]
                               + m[:, 4 * j + 2] * d[:, 2] for j in range(3)], 1)
-            inv = _safe_inv(rd)
+            inv = safe_inv(rd)
             r_o[idx], r_d[idx], r_inv[idx] = ro, rd, inv
             r_p[idx] = ro * inv
             r_oct[idx] = _octant(rd)
@@ -156,7 +157,7 @@ def inst_trace_plain(nodes, tris, inst_rows, origin, direction, t_in,
                 g = tris[row_id].reshape(-1, 8, 16)
                 o = r_o[ridx][:, :, None]
                 d = r_d[ridx][:, :, None]
-                ft, hu, hv, geo_ok = _leaf_tests(g, o, d, leaf_fmt, rcount, rr)
+                ft, hu, hv, geo_ok = leaf_tests(g, o, d, leaf_fmt, rcount, rr)
                 tb, fb = t[ridx], face[ridx]
                 ub, vb, ib = fu[ridx], fv[ridx], inst[ridx]
                 base = (row_id * 8).to(torch.int32)
@@ -174,7 +175,7 @@ def inst_trace_plain(nodes, tris, inst_rows, origin, direction, t_in,
     return t, face, fu, fv, inst
 
 
-def _leaf_tests(g, o, d, leaf_fmt, count, rr):
+def leaf_tests(g, o, d, leaf_fmt, count, rr):
     """Triangle tests of one leaf row: g (G, 8, 16) slots, o/d (G, 3, 1)
     object-space rays. Returns (ft, fu, fv, ok) of shape (G, 8); `ok`
     holds every condition except ft < t, which depends on the earlier
@@ -188,6 +189,21 @@ def _leaf_tests(g, o, d, leaf_fmt, count, rr):
         hx, hy, hz = ox + ft * dx, oy + ft * dy, oz + ft * dz
         fu = g[..., 4] * hx + g[..., 5] * hy + g[..., 6] * hz + g[..., 7]
         fv = g[..., 8] * hx + g[..., 9] * hy + g[..., 10] * hz + g[..., 11]
+        ok = (fu >= 0.0) & (fv >= 0.0) & (fu + fv <= 1.0) & (ft >= 0.0)
+        return ft, fu, fv, ok
+    if leaf_fmt == 'woop':
+        # Unit-triangle transform: M row-major in slots 0..8, c = -M p0
+        # in 9..11. Padded slots are all zero: ft = -0/0 is NaN and every
+        # comparison fails.
+        opx = g[..., 0] * ox + g[..., 1] * oy + g[..., 2] * oz + g[..., 9]
+        opy = g[..., 3] * ox + g[..., 4] * oy + g[..., 5] * oz + g[..., 10]
+        opz = g[..., 6] * ox + g[..., 7] * oy + g[..., 8] * oz + g[..., 11]
+        dpx = g[..., 0] * dx + g[..., 1] * dy + g[..., 2] * dz
+        dpy = g[..., 3] * dx + g[..., 4] * dy + g[..., 5] * dz
+        dpz = g[..., 6] * dx + g[..., 7] * dy + g[..., 8] * dz
+        ft = -opz / dpz
+        fu = opx + ft * dpx
+        fv = opy + ft * dpy
         ok = (fu >= 0.0) & (fv >= 0.0) & (fu + fv <= 1.0) & (ft >= 0.0)
         return ft, fu, fv, ok
     if leaf_fmt != 'mt':
@@ -214,7 +230,7 @@ def _leaf_tests(g, o, d, leaf_fmt, count, rr):
     return ft, fu, fv, ok
 
 
-def _check(name, x, device, shape):
+def check_tensor(name, x, device, shape):
     """Raise unless x is a contiguous float32 tensor of `shape` (None
     matches any length) on the CUDA `device`."""
     if x.device != device:
@@ -234,11 +250,11 @@ def _inst_trace_cuda(nodes, tris, inst_rows, origin, direction, t_in,
     dev = origin.device
     n = origin.shape[-1]
     for name, x in (('nodes', nodes), ('tris', tris), ('inst_rows', inst_rows)):
-        _check(name, x, dev, (None, 128))
-    _check('origin', origin, dev, (3, n))
-    _check('direction', direction, dev, (3, n))
-    _check('t_in', t_in, dev, (n,))
-    if leaf_fmt not in _LEAF_FMTS:
+        check_tensor(name, x, dev, (None, 128))
+    check_tensor('origin', origin, dev, (3, n))
+    check_tensor('direction', direction, dev, (3, n))
+    check_tensor('t_in', t_in, dev, (n,))
+    if leaf_fmt not in LEAF_FMTS:
         raise NotImplementedError(f'leaf format {leaf_fmt!r}')
     t = torch.empty(n, dtype=torch.float32, device=dev)
     face = torch.empty(n, dtype=torch.int32, device=dev)
@@ -249,7 +265,7 @@ def _inst_trace_cuda(nodes, tris, inst_rows, origin, direction, t_in,
                          device=dev)
     from .build import load
     err = load().inst_trace(nodes, tris, inst_rows, origin, direction, t_in,
-                            int(tlas_rows), _LEAF_FMTS[leaf_fmt], t, face, fu,
+                            int(tlas_rows), LEAF_FMTS[leaf_fmt], t, face, fu,
                             fv, inst, counts,
                             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

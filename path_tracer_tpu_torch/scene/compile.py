@@ -7,8 +7,6 @@ arrays become a `PackedScene` dataclass of torch tensors on the
 requested device instead of a JAX pytree.
 
 Not carried over from the JAX compile (see ROADMAP.md):
-  * the v5/v3 world-flattened tables (`wide_*`), which feed only the
-    trace_packet / trace_wide kernels that the port has not ported;
   * the VMEM-driven leaf-row reorder (`_order_streamed_leaf_rows`): it
     permutes leaf rows by a TPU residency heuristic and changes no hit;
   * incremental recompilation from a previous PackedScene (every call
@@ -77,6 +75,14 @@ def _bucket_rows(n, lo=64):
     return -(-n // q) * q
 
 
+def _pad_rows(a, target, fill=0):
+    """`a` padded along axis 0 to `target` rows of `fill`."""
+    extra = target - len(a)
+    if extra <= 0:
+        return a
+    return np.concatenate([a, np.full((extra,) + a.shape[1:], fill, a.dtype)])
+
+
 def _to_device(value, device):
     if isinstance(value, dict):
         return {k: _to_device(v, device) for k, v in value.items()}
@@ -135,7 +141,7 @@ class MaterialTable:
 class PackedScene:
     """Flattened scene as tensors: the contract between the compiler and
     the integrator. Field meanings and layouts are those of the JAX
-    package's PackedScene (minus the `wide_*` tables)."""
+    package's PackedScene."""
 
     shape_type: Any               # (S,) int32
     shape_material: Any           # (S,) int32
@@ -155,6 +161,12 @@ class PackedScene:
     mesh_node_max: Any            # (3, B)
     mesh_node_a: Any              # (B,) int32
     mesh_node_b: Any              # (B,) int32
+    wide_nodes: Any               # (W, 128) float32 flat BVH8, v3 kernel
+    wide_tris: Any                # (R, 128) float32 4 tris/row + attributes
+    wide_nodes_g: Any             # (W, 128) float32 flat BVH8, v5 kernel
+    wide_tris_g: Any              # (Rg, 128) float32 8 tris/row, geometry
+    wide_attrs: Any               # (Rg*8, 16) float32 attribute side table
+    wide_face_map: Any            # (Rg*8,) int32 slot -> world face, -1 pad
     inst_nodes: Any               # (W, 128) float32 [TLAS | mesh nodes]
     inst_tris: Any                # (R, 128) float32 object-space leaves
     inst_attrs: Any               # (R*8, 16) float32
@@ -419,9 +431,56 @@ def _build_atlas_pair(atlas):
     return pair.reshape(-1, 8).astype(np.float32)
 
 
+def gather_world_tris(instances):
+    """World-space triangle soup of every mesh instance: (positions
+    (F, 3, 3), normals (F, 3, 3), uvs (F, 3, 2), shape index (F,)), or
+    None if the scene has no mesh faces."""
+    pos_parts, nrm_parts, uv_parts, shp_parts = [], [], [], []
+    for shape_index, entity, world, inv_world in instances:
+        mesh = entity.mesh
+        faces = np.asarray(mesh.faces)
+        if len(faces) == 0:
+            continue
+        p = np.asarray(mesh.positions, np.float32)[faces]
+        p = p @ world[:3, :3].T + world[:3, 3]
+        n = np.asarray(mesh.normals, np.float32)[faces]
+        n = n @ inv_world[:3, :3]   # row-vector form of (W^-1)^T n
+        n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+        uv = np.asarray(mesh.uvs, np.float32)[faces]
+        pos_parts.append(p.astype(np.float32))
+        nrm_parts.append(n.astype(np.float32))
+        uv_parts.append(uv)
+        shp_parts.append(np.full(len(faces), shape_index, np.float32))
+    if not pos_parts:
+        return None
+    return (np.concatenate(pos_parts), np.concatenate(nrm_parts),
+            np.concatenate(uv_parts), np.concatenate(shp_parts))
+
+
+def _empty_wide():
+    """The inert flat tree of a scene without flattened triangles."""
+    return bvh8.WideBvh(nodes=np.zeros((1, 128), np.float32),
+                        tris=np.zeros((1, 128), np.float32),
+                        face_map=np.full(4, -1, np.int32),
+                        num_nodes=0, num_leaves=0)
+
+
+def _build_wide_tables(instances):
+    """Flatten every mesh instance to world space and build one BVH8
+    over all triangles (scene/bvh8.py): positions and inverse-transpose
+    normals are transformed here, so the flat kernels transform no ray.
+    Returns (WideBvh, world triangle soup or None)."""
+    tris = gather_world_tris(instances)
+    if tris is None:
+        return _empty_wide(), None
+    return bvh8.build_wide_bvh(*tris), tris
+
+
 def choose_packet_mode(instances):
     """'inst' (two-level instanced tables, ops/trace_inst.py) for every
-    scene with a mesh; 'flat' for analytic-only scenes."""
+    scene with a mesh; 'flat' (one world-flattened BVH8,
+    ops/trace_packet.py) for analytic-only scenes. Replace this function
+    for the length of a compile to build a mesh scene's flat tables."""
     return 'inst' if instances else 'flat'
 
 
@@ -547,18 +606,12 @@ def _build_inst_tables(instances, inst_bounds, width=None, leaf_max=None):
         attrs_cat = np.concatenate([attrs_cat, np.zeros((pad * 8, 16), np.float32)])
         fmap_cat = np.concatenate([fmap_cat, np.full(pad * 8, -1, np.int32)])
 
-    def pad_rows(a, target, fill=0):
-        extra = target - len(a)
-        if extra <= 0:
-            return a
-        return np.concatenate([a, np.full((extra,) + a.shape[1:], fill, a.dtype)])
-
     r_rows = _bucket_rows(len(tris_cat))
     return dict(
-        inst_nodes=pad_rows(nodes_cat, _bucket_rows(len(nodes_cat))),
-        inst_tris=pad_rows(tris_cat, r_rows),
-        inst_attrs=pad_rows(attrs_cat, r_rows * 8),
-        inst_face_map=pad_rows(fmap_cat, r_rows * 8, fill=-1),
+        inst_nodes=_pad_rows(nodes_cat, _bucket_rows(len(nodes_cat))),
+        inst_tris=_pad_rows(tris_cat, r_rows),
+        inst_attrs=_pad_rows(attrs_cat, r_rows * 8),
+        inst_face_map=_pad_rows(fmap_cat, r_rows * 8, fill=-1),
         inst_rows=inst_rows,
         inst_aux=inst_aux,
     ), t_rows
@@ -653,7 +706,8 @@ def _pack_textures(scene, table):
 
 def _pack_shapes(scene, out):
     """Shape tables, analytic groups, portable-instance table, scene
-    bounds and the two-level trace tables."""
+    bounds, and the trace tables of the scene's packet mode: two-level
+    instanced ('inst') or world-flattened ('flat')."""
     shape_type, shape_material, shape_mesh_root = [], [], []
     world_from_object, object_from_world = [], []
     bounds_lo, bounds_hi = [], []
@@ -733,7 +787,10 @@ def _pack_shapes(scene, out):
         tables, t_rows = _build_inst_tables(instances, inst_bounds)
         out.update(tables)
         scene.packet_tlas_rows = t_rows
+        # The flat tables are not built in this mode.
+        wide, world_tris = _empty_wide(), None
     else:
+        wide, world_tris = _build_wide_tables(instances)
         scene.packet_tlas_rows = 0
         for k, shape in (('inst_nodes', (1, 128)), ('inst_tris', (1, 128)),
                          ('inst_attrs', (8, 16)), ('inst_rows', (1, 128)),
@@ -741,6 +798,25 @@ def _pack_shapes(scene, out):
             out[k] = np.zeros(shape, np.float32)
         out['inst_face_map'] = np.full(8, -1, np.int32)
     scene.packet_mode = packet_mode
+
+    out['wide_nodes'] = _pad_rows(wide.nodes, _bucket_rows(len(wide.nodes)))
+    out['wide_tris'] = _pad_rows(wide.tris, _bucket_rows(len(wide.tris)))
+    if world_tris is not None:
+        nodes_g, tris_g, attrs, face_map_g = bvh8.pack_wide_geom(
+            wide, *world_tris)
+        # Same row bucketing as the instanced tables; padded rows are inert.
+        rg = _bucket_rows(len(tris_g))
+        nodes_g = _pad_rows(nodes_g, _bucket_rows(len(nodes_g)))
+        tris_g = _pad_rows(tris_g, rg)
+        attrs = _pad_rows(attrs, rg * 8)
+        face_map_g = _pad_rows(face_map_g, rg * 8, fill=-1)
+    else:
+        nodes_g = wide.nodes
+        tris_g = np.zeros((1, 128), np.float32)
+        attrs = np.zeros((8, 16), np.float32)
+        face_map_g = np.full(8, -1, np.int32)
+    out.update(wide_nodes_g=nodes_g, wide_tris_g=tris_g, wide_attrs=attrs,
+               wide_face_map=face_map_g)
 
 
 def _pack_cameras(scene, aspect_ratio):
@@ -827,8 +903,8 @@ def packed_from_numpy(fields, layout_fields=None, device='cuda'):
 
     fields: {PackedScene field: numpy array}; 'materials' is a dict of
     MaterialTable columns, 'analytic_idx'/'analytic_valid' are dicts
-    keyed by shape type. Extra keys (such as the JAX PackedScene's
-    `wide_*` leaves) are ignored, so the JAX package's compile can be
+    keyed by shape type. Extra keys are ignored, and the fields are
+    those of the JAX PackedScene, so the JAX package's compile can be
     carried across leaf by leaf. layout_fields: optional {SceneLayout
     field: value}; when given, the SceneLayout is attached as
     `host_layout` (unknown keys are ignored).

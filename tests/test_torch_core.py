@@ -47,14 +47,40 @@ def test_rng_streams_bit_exact(seed):
                                   t.state.numpy())
 
 
+def _observer_float64(lam):
+    """sample_standard_observer's lobes evaluated by numpy in float64."""
+    lam = lam.astype(np.float64)
+
+    def lobe(scale, center, slope_lo, slope_hi):
+        t = (lam - center) * np.where(lam < center, slope_lo, slope_hi)
+        return scale * np.exp(-0.5 * t * t)
+
+    return np.stack([
+        lobe(0.362, 442.0, 0.0624, 0.0374) + lobe(1.056, 599.8, 0.0264, 0.0323)
+        - lobe(0.065, 501.1, 0.0490, 0.0382),
+        lobe(0.821, 568.8, 0.0213, 0.0247) + lobe(0.286, 530.9, 0.0613, 0.0322),
+        lobe(1.217, 437.0, 0.0845, 0.0278) + lobe(0.681, 459.0, 0.0385, 0.0725)])
+
+
 def test_spectrum_functions():
     rng = np.random.default_rng(1)
     lam = rng.uniform(360, 830, (4, 4096)).astype(np.float32)
     beta = rng.normal(0, 1e-3, (4, 4096)).astype(np.float32)
     beta[3] = np.abs(beta[3]) * 1e3
+    # Both packages are held to a float64 evaluation first, so that a
+    # failure names the side that moved and the state of torch's CPU
+    # backend in this process.
+    exact = _observer_float64(lam)
+    port = tspectrum.sample_standard_observer(torch.from_numpy(lam)).numpy()
+    ref = np.asarray(jspectrum.sample_standard_observer(lam))
+    flush = getattr(torch, 'get_flush_denormal', lambda: 'unknown')()
     np.testing.assert_allclose(
-        tspectrum.sample_standard_observer(torch.from_numpy(lam)).numpy(),
-        np.asarray(jspectrum.sample_standard_observer(lam)), rtol=RTOL, atol=ATOL)
+        port, exact, rtol=RTOL, atol=ATOL,
+        err_msg=f'the port left float64 (torch threads '
+                f'{torch.get_num_threads()}, flush denormal {flush})')
+    np.testing.assert_allclose(ref, exact, rtol=RTOL, atol=ATOL,
+                               err_msg='JAX left float64')
+    np.testing.assert_allclose(port, ref, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(
         tspectrum.sample_parametric_spectrum_scaled(
             torch.from_numpy(beta[:, None, :].repeat(4, 1)), torch.from_numpy(lam)).numpy(),

@@ -1,8 +1,9 @@
 """Scenes shared by the port's tests, and the port's tests that need a card.
 
-`blob_scene` and `textured_scene` take the scene-model module (and the
-procedural module) of either package, so the JAX package and the port
-build the same scene from the same numbers.
+`blob_scene`, `textured_scene` and `two_instance_scene` take the
+scene-model module (and the procedural module) of either package, so the
+JAX package and the port build the same scene from the same numbers;
+`flat_mode` compiles a mesh scene's world-flattened tables.
 
 The tests here launch the hand-written CUDA kernels and compare them
 with their plain PyTorch versions on the card. They carry the `cuda`
@@ -14,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+import contextlib
+
 from path_tracer_tpu_torch.core.constants import (
-    MATERIAL_TYPE_BASIC_DIFFUSE, TEXTURE_TYPE_RADIANCE,
-    TEXTURE_TYPE_REFLECTANCE_WITH_ALPHA)
+    MATERIAL_TYPE_BASIC_DIFFUSE, MATERIAL_TYPE_BASIC_METAL,
+    TEXTURE_TYPE_RADIANCE, TEXTURE_TYPE_REFLECTANCE_WITH_ALPHA)
 
 
 def blob_scene(m, n_instances=6, seed=7):
@@ -74,6 +77,57 @@ def textured_scene(m, p):
     return scene
 
 
+def two_instance_scene(m, p, roughness=0.3):
+    """tests/test_trace_wide.py's multi-instance scene with a camera: a
+    diffuse ball (scaled unevenly) and a metal torus as mesh instances, a
+    diffuse plane and a metal sphere as analytic shapes."""
+    scene = m.Scene()
+    pos, nrm, uv, faces = p.uv_sphere(16, 8)
+    ball = scene.create_mesh(name='ball', positions=pos, normals=nrm, uvs=uv,
+                             faces=faces)
+    pos, nrm, uv, faces = p.torus(16, 8, 1.2, 0.4)
+    ring = scene.create_mesh(name='ring', positions=pos, normals=nrm, uvs=uv,
+                             faces=faces)
+    m1 = scene.create_material(MATERIAL_TYPE_BASIC_DIFFUSE, name='m1',
+                               base_color=np.asarray([0.7, 0.3, 0.2]))
+    m2 = scene.create_material(MATERIAL_TYPE_BASIC_METAL, name='m2',
+                               base_color=np.asarray([0.8, 0.8, 0.9]),
+                               roughness=roughness)
+    scene.create_entity(m.ENTITY_TYPE_MESH_INSTANCE, mesh=ball, material=m1,
+                        transform=m.Transform(position=[1.0, 0.5, 0.2],
+                                              rotation=[0.3, 0.7, 0.1],
+                                              scale=[0.8, 1.4, 0.6]))
+    scene.create_entity(m.ENTITY_TYPE_MESH_INSTANCE, mesh=ring, material=m2,
+                        transform=m.Transform(position=[-1.2, -0.4, 0.8],
+                                              rotation=[0.0, 0.4, 1.1],
+                                              scale=1.3))
+    scene.create_entity(m.ENTITY_TYPE_PLANE, material=m1,
+                        transform=m.Transform(position=[0, 0, -1.5]))
+    scene.create_entity(m.ENTITY_TYPE_SPHERE, material=m2,
+                        transform=m.Transform(position=[0.2, 2.0, 0.0]))
+    cam = scene.create_entity(
+        m.ENTITY_TYPE_CAMERA,
+        transform=m.Transform(position=[0.0, -6.5, 2.4],
+                              rotation=[np.pi / 2.2, 0, 0]))
+    cam.pinhole.field_of_view_in_degrees = 70.0
+    return scene
+
+
+@contextlib.contextmanager
+def flat_mode(*compile_modules):
+    """Within the block, the given scene/compile modules (either
+    package's) build every mesh scene's world-flattened tables:
+    `choose_packet_mode` is replaced and then restored."""
+    saved = [c.choose_packet_mode for c in compile_modules]
+    for c in compile_modules:
+        c.choose_packet_mode = lambda instances: 'flat'
+    try:
+        yield
+    finally:
+        for c, fn in zip(compile_modules, saved):
+            c.choose_packet_mode = fn
+
+
 pytestmark = pytest.mark.cuda
 
 
@@ -92,7 +146,7 @@ def _random_rays(rng, n, device):
             torch.full((n,), 1e6, dtype=torch.float32, device=device))
 
 
-@pytest.mark.parametrize('leaf_fmt', ['mt', 'bary'])
+@pytest.mark.parametrize('leaf_fmt', ['mt', 'bary', 'woop'])
 def test_kernel_matches_plain_version(cuda, leaf_fmt, monkeypatch):
     """csrc/trace_inst.cu against inst_trace_plain, both on the card, on
     the instanced blob scene. Both traverse each ray in the same order
@@ -123,37 +177,116 @@ def test_kernel_matches_plain_version(cuda, leaf_fmt, monkeypatch):
     assert bool((kernel[4][kernel[1] < 0] == -1).all())
 
 
-def test_kernel_wrapper_rejects_bad_input(cuda):
-    """The wrapper checks device, dtype and shape before it launches."""
-    from path_tracer_tpu_torch.ops import trace_inst
+def _blob_soup(rng, faces=300):
+    """Random triangles with normals, uvs and shape indices, clustered
+    so that leaves fill more than one row."""
+    base = rng.uniform(-4, 4, (faces, 1, 3)).astype(np.float32)
+    tri = (base + rng.uniform(-0.6, 0.6, (faces, 3, 3))).astype(np.float32)
+    nrm = rng.normal(size=(faces, 3, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    uv = rng.uniform(0, 1, (faces, 3, 2)).astype(np.float32)
+    shp = rng.integers(0, 5, faces).astype(np.float32)
+    return tri, nrm, uv, shp
+
+
+@pytest.mark.parametrize('leaf_fmt', ['mt', 'bary', 'woop'])
+def test_wide_trace5_kernel_matches_plain_version(cuda, leaf_fmt, monkeypatch):
+    """csrc/trace_packet.cu against wide_trace5_plain, both on the card:
+    same per-ray order, same float32 operations, so every output and
+    every per-ray counter is equal to the bit."""
+    import path_tracer_tpu_torch.scene.bvh8 as bvh8
+    from path_tracer_tpu_torch.ops import trace_packet
+
+    monkeypatch.setattr(bvh8, 'LEAF_FMT', leaf_fmt)
+    rng = np.random.default_rng(7)
+    soup = _blob_soup(rng)
+    nodes, tris = (torch.from_numpy(x).to(cuda) for x in bvh8.pack_wide_geom(
+        bvh8.build_wide_bvh(*soup), *soup)[:2])
+    o, d, t_in = _random_rays(rng, 8192, cuda)
+    before = trace_packet.launches
+    kernel = trace_packet.wide_trace5(nodes, tris, o, d, t_in, stats=True)
+    torch.cuda.synchronize()
+    assert trace_packet.launches == before + 1
+    plain = trace_packet.wide_trace5_plain(nodes, tris, o, d, t_in,
+                                           leaf_fmt=leaf_fmt, stats=True)
+    assert int((plain[1] >= 0).sum()) > 30
+    for name, k, p in zip(('t', 'face', 'fu', 'fv', 'counts'), kernel, plain):
+        assert torch.equal(k, p), name
+
+
+def test_wide_trace_kernel_matches_plain_version(cuda):
+    """csrc/trace_wide.cu against wide_trace_plain, both on the card: all
+    eight outputs and the per-ray counters equal to the bit; shape is 0
+    on a miss."""
+    import path_tracer_tpu_torch.scene.bvh8 as bvh8
+    from path_tracer_tpu_torch.ops import trace_wide
+
+    rng = np.random.default_rng(8)
+    wide = bvh8.build_wide_bvh(*_blob_soup(rng))
+    nodes = torch.from_numpy(wide.nodes).to(cuda)
+    tris = torch.from_numpy(wide.tris).to(cuda)
+    o, d, t_in = _random_rays(rng, 8192, cuda)
+    before = trace_wide.launches
+    kernel = trace_wide.wide_trace(nodes, tris, o, d, t_in, stats=True)
+    torch.cuda.synchronize()
+    assert trace_wide.launches == before + 1
+    plain = trace_wide.wide_trace_plain(nodes, tris, o, d, t_in, stats=True)
+    assert int((plain[1] >= 0).sum()) > 30
+    for name, k, p in zip(('t', 'face', 'normal', 'uv', 'shape', 'counts'),
+                          kernel, plain):
+        assert torch.equal(k, p), name
+    assert bool((kernel[4][kernel[1] < 0] == 0).all())
+
+
+@pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5', 'wide_trace'])
+def test_kernel_wrapper_rejects_bad_input(cuda, kernel):
+    """Each wrapper checks device, dtype and shape before it launches."""
+    from path_tracer_tpu_torch.ops import trace_inst, trace_packet, trace_wide
 
     nodes = torch.zeros((8, 128), device=cuda)
     tris = torch.zeros((2, 128), device=cuda)
     rows = torch.zeros((1, 128), device=cuda)
     o = torch.zeros((3, 64), device=cuda)
     t_in = torch.ones(64, device=cuda)
-    with pytest.raises(ValueError):
-        trace_inst.inst_trace(nodes, tris, rows, o, o.double(), t_in, 8)
-    with pytest.raises(ValueError):
-        trace_inst.inst_trace(nodes.cpu(), tris, rows, o, o, t_in, 8)
-    with pytest.raises(ValueError):
-        trace_inst.inst_trace(nodes, tris, rows, o, o[:2], t_in, 8)
+
+    def run(nodes=nodes, tris=tris, o=o, d=o, t_in=t_in):
+        if kernel == 'inst_trace':
+            return trace_inst.inst_trace(nodes, tris, rows, o, d, t_in, 8)
+        fn = (trace_packet.wide_trace5 if kernel == 'wide_trace5'
+              else trace_wide.wide_trace)
+        return fn(nodes, tris, o, d, t_in)
+
+    run()
+    for bad in (dict(d=o.double()), dict(nodes=nodes.cpu()), dict(d=o[:2]),
+                dict(tris=tris[:, :64]), dict(t_in=t_in[:32]),
+                dict(nodes=torch.zeros((128, 16), device=cuda).T)):
+        with pytest.raises(ValueError):
+            run(**bad)
 
 
-def test_render_scene_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize('scene_name', ['textured_inst', 'metal_flat'])
+def test_render_scene_on_card_matches_cpu(cuda, scene_name):
     """render_scene at 64x32, 4 rounds, seed 3 on the card against the
-    same call on the CPU (the plain traversal): the random streams are
-    the same, so the frames differ only where a last-bit difference of a
-    transcendental sends a path elsewhere. Held to bench.py's Monte-Carlo
-    bands at their floor, 2% of the mean."""
+    same call on the CPU (the plain traversal), for the textured scene
+    through inst_trace and the diffuse + metal scene through wide_trace5:
+    the random streams are the same, so the frames differ only where a
+    last-bit difference of a transcendental sends a path elsewhere. Held
+    to bench.py's Monte-Carlo bands at their floor, 2% of the mean."""
     import path_tracer_tpu_torch as tpkg
+    import path_tracer_tpu_torch.scene.compile as tcompile
     import path_tracer_tpu_torch.scene.model as model
     import path_tracer_tpu_torch.scene.procedural as proc
 
-    ref = tpkg.render_scene(textured_scene(model, proc), 64, 32,
-                            spp_rounds=4, seed=3, device='cpu').numpy()
-    img = tpkg.render_scene(textured_scene(model, proc), 64, 32,
-                            spp_rounds=4, seed=3, device=cuda).cpu().numpy()
+    def frame(device):
+        if scene_name == 'textured_inst':
+            return tpkg.render_scene(textured_scene(model, proc), 64, 32,
+                                     spp_rounds=4, seed=3, device=device)
+        with flat_mode(tcompile):
+            return tpkg.render_scene(two_instance_scene(model, proc), 64, 32,
+                                     spp_rounds=4, seed=3, device=device)
+
+    ref = frame('cpu').numpy()
+    img = frame(cuda).cpu().numpy()
     assert img.shape == ref.shape == (32, 64, 3)
     assert np.isfinite(img).all()
     rel = np.abs(img - ref).mean() / (ref.mean() + 1e-3)

@@ -60,7 +60,9 @@ def test_port_imports_no_jax():
     nor the JAX package."""
     code = ('import sys, torch, path_tracer_tpu_torch as p\n'
             'from path_tracer_tpu_torch.integrator import scatter, wavefront\n'
-            'from path_tracer_tpu_torch.ops import trace_inst, build\n'
+            'from path_tracer_tpu_torch.ops import trace_inst, trace_packet, '
+            'trace_wide, build\n'
+            'from path_tracer_tpu_torch.models import basic_metal\n'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "path_tracer_tpu" or m.startswith("path_tracer_tpu.")]\n'
             'assert not bad, bad\n')

@@ -1,5 +1,5 @@
 """The port's instanced BVH8 traversal against the JAX package's Pallas
-kernel (interpret mode) and full trace, for both leaf formats.
+kernel (interpret mode) and full trace, for the three leaf formats.
 
 Tolerances are tests/test_trace_inst.py's: the per-ray traversal and the
 3072-ray packet kernel visit children in different orders, so rays that
@@ -64,7 +64,7 @@ def _agree(t_port, f_port, t_ref, f_ref):
     return hit
 
 
-@pytest.mark.parametrize('leaf_fmt', ['mt', 'bary'], indirect=True)
+@pytest.mark.parametrize('leaf_fmt', ['mt', 'bary', 'woop'], indirect=True)
 def test_plain_traversal_matches_pallas_kernel(leaf_fmt):
     """inst_trace_plain (the kernel's plain version) against the JAX
     inst_trace kernel in interpret mode, on the same tables and rays."""
@@ -90,7 +90,7 @@ def test_plain_traversal_matches_pallas_kernel(leaf_fmt):
     assert (counts[1] <= counts[2]).all() and (counts[2] <= 2 * counts[1]).all()
 
 
-@pytest.mark.parametrize('leaf_fmt', ['mt', 'bary'], indirect=True)
+@pytest.mark.parametrize('leaf_fmt', ['mt', 'bary', 'woop'], indirect=True)
 def test_trace_matches_jax_trace(leaf_fmt):
     """The port's full trace (analytic shapes, instanced traversal, ray
     sort, attribute resolve) against JAX trace(use_packet=True,
