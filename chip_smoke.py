@@ -2,31 +2,44 @@
 
     python3 chip_smoke.py        (from the repository root)
 
-Drives path_tracer_tpu_torch's trace paths on the card and holds its three
+Drives path_tracer_tpu_torch's trace paths on the card and holds its
 hand-written kernels against their plain PyTorch versions:
 
   1. the card's name and power limit (nvidia-smi);
   2. builds every CUDA kernel from path_tracer_tpu_torch/csrc/ (one
      torch.utils.cpp_extension.load call, nvcc for sm_90a), and reads
-     registers, stack frame and spills of each from `nvcc -Xptxas=-v`;
+     registers, stack frame and spills of every kernel instantiation from
+     `nvcc -Xptxas=-v` (a spill fails the run);
   3. compiles the textured viking hall (detail=1) for 1920x1080 in 'inst'
      mode (two-level instanced tables) and in 'flat' mode (one
-     world-flattened BVH8), in each of the three leaf formats;
+     world-flattened BVH8), in each of the three leaf formats, with the
+     bytes of the tables;
   4. each kernel -- inst_trace, wide_trace5 (v5) and wide_trace (v3) --
      against its plain version on the 2,073,600 primary rays of `reset`
-     and on the rays after 2 rounds, sorted as the main path sorts them,
-     for each leaf format, bit for bit (kernel and plain version take the
-     same per-ray traversal order): a 65,536-ray subset of every set, and
-     all rays of the bounce set in the default format; kernel time (CUDA
-     events, median of 7), plain time, and the kernel's bound from its
-     counted pops and rows;
+     and on the rays after 2 rounds, in ray_sort_key order, for each leaf
+     format, bit for bit (kernel and plain version take the same per-ray
+     traversal order): a 65,536-ray subset of every set, and all rays of
+     the bounce set in the default format. What is compared and timed is
+     the launch the render paths make; the launch with the per-ray
+     counters, another instantiation, must give the same. The baseline
+     kernels (variant='simple') likewise against the plain versions
+     without the pop cull; kernel time warm and cold in sorted and in lane
+     order (CUDA events, median of 7; cold = a buffer larger than L2
+     written before each launch), plain time, and the kernel's bound from
+     its counted pops and triangles; `kernel_anatomy`: what each kernel
+     measured of itself (SIMT efficiency of each loop body, distinct rows
+     a warp fetches in a pass, deepest stack, culled pops); `kernel_ab`:
+     the kernel and its baseline in turns, on rays in sorted and in lane
+     order;
   5. the three kernels against one another on the bounce rays (hit masks
      equal on > 99.5% of the rays, t within 5e-4 on > 99.9% of the rays
      all three hit);
   6. the 'inst' path end to end: `render` at 1920x1080, 6 warm-up and 24
      timed rounds, Mrays/s; inst_trace's launch count must equal the
-     rounds run; the time of `trace` alone with and without the ray sort,
-     and, from a profile of 4 more rounds, the device time by kernel;
+     rounds run and the baseline kernels are never launched; the time of
+     `trace` alone with and without the ray sort on steady-state and on
+     primary rays (`trace_sort`), and, from a profile of 4 more rounds, the
+     device time by kernel;
   7. the same for the 'flat' path: wide_trace5 is launched once a round
      and inst_trace not at all;
   8. `trace(use_packet=False)`, the portable BVH2 traversal, against
@@ -37,7 +50,7 @@ hand-written kernels against their plain PyTorch versions:
  10. a diffuse + metal scene of two mesh instances, a plane and a sphere
      at 640x320, 16 rounds, in both modes.
 
-Every phase prints one line; any failure raises and exits non-zero. The
+Every phase prints its lines; any failure raises and exits non-zero. The
 last three lines are the card's name and power limit, the
 {"kernels": [...]} record and {"ok": true, "device": {...}}. Without a
 CUDA device it exits 1 and prints no result.
@@ -94,13 +107,18 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=TIMING_REPS):
+def cuda_ms(fn, reps=TIMING_REPS, flush=None):
     """Median milliseconds of fn() over `reps` runs after one warm-up,
-    each bracketed by CUDA events on the current stream."""
+    each bracketed by CUDA events on the current stream. `flush()`, when
+    given, runs before each timed run, outside the events: with a write
+    of more than the L2's 50 MB it gives the time a caller sees whose
+    other kernels have pushed the tables out of the cache."""
     import torch
     fn()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -111,29 +129,83 @@ def cuda_ms(fn, reps=TIMING_REPS):
     return statistics.median(times)
 
 
-def start_ptxas(csrc, flags, out_dir):
-    """One `nvcc -Xptxas=-v -c` per kernel source, all started together;
-    `read_ptxas` collects what they print."""
+def time_in_turns(calls, reps, flush=None):
+    """{name: median ms} of one launch of each call, the calls taken in
+    turns, forwards and backwards alternately, each launch bracketed by
+    CUDA events; `flush()` runs before each timed launch when given. Two
+    kernels are compared so, within one run on one card."""
+    import torch
+    times = {name: [] for name in calls}
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    order = list(calls)
+    for rep in range(reps):
+        for name in (order if rep % 2 == 0 else order[::-1]):
+            if flush is not None:
+                flush()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            calls[name]()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def start_ptxas(csrc, flags, out_dir, names=None):
+    """One `nvcc -Xptxas=-v -c` per kernel source of `csrc` (or those in
+    `names`), all started together; `read_ptxas` collects what they
+    print."""
     nvcc = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
     os.makedirs(out_dir, exist_ok=True)
     return {name: subprocess.Popen(
         [nvcc, *flags, '-Xptxas=-v', '-c', os.path.join(csrc, name), '-o',
          os.path.join(out_dir, name + '.ptxas.o')], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
-        for name in sorted(os.listdir(csrc)) if name.endswith('.cu')}
+        for name in sorted(names or os.listdir(csrc)) if name.endswith('.cu')}
 
 
-def read_ptxas(procs):
+def kernel_name(entry):
+    """`name<template arguments>` of a mangled kernel symbol: the
+    length-prefixed identifier that ends in `_kernel`."""
+    for run in re.finditer(r'\d+', entry):
+        for start in range(run.start(), run.end()):
+            length = int(entry[start:run.end()])
+            name = entry[run.end():run.end() + length]
+            if name.endswith('_kernel') and len(name) == length:
+                args = re.match(r'I((?:L[a-z]\d+E)+)E', entry[run.end() + length:])
+                if args:
+                    name += '<%s>' % ','.join(
+                        re.findall(r'L[a-z](\d+)E', args.group(1)))
+                return name
+    return entry
+
+
+def read_ptxas(procs, fail_on_spill=True, **fields):
+    """One `ptxas` line per kernel instantiation (the template arguments
+    are leaf format and stats mode); a kernel that spills fails the run
+    unless `fail_on_spill` is off. Returns the records it logged."""
+    records = []
     for name, proc in procs.items():
         text = proc.communicate(timeout=600)[0]
-        found = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
-                          r'(\d+) bytes spill loads\s+ptxas info\s*: Used (\d+) '
-                          r'registers', text)
+        found = re.findall(
+            r"Compiling entry function '(\w+)'.*?"
+            r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+            r'(\d+) bytes spill loads\s+ptxas info\s*: Used (\d+) registers',
+            text, flags=re.S)
         if proc.returncode != 0 or not found:
             raise RuntimeError(f'nvcc -Xptxas=-v failed on {name}:\n{text}')
-        stack, stores, loads, regs = map(int, found.groups())
-        log('ptxas', source=name, registers=regs, stack_frame_bytes=stack,
-            spill_store_bytes=stores, spill_load_bytes=loads)
+        for entry, stack, stores, loads, regs in found:
+            records.append(dict(
+                phase='ptxas', **fields, source=name, kernel=kernel_name(entry),
+                registers=int(regs), stack_frame_bytes=int(stack),
+                spill_store_bytes=int(stores), spill_load_bytes=int(loads)))
+            log(**records[-1])
+            if fail_on_spill and (int(stores) or int(loads)):
+                raise RuntimeError(f'{entry} of {name} spills registers')
+    return records
 
 
 def compare(kernel_name, set_name, kernel_out, plain_out):
@@ -167,18 +239,20 @@ def fraction_close(a, b, tol=5e-4):
 
 
 def kernel_bound(counts, n_rays, table_bytes, out_words, ops_triangle,
-                 tris_per_row, extra_ops=0):
+                 extra_ops=0):
     """Least time the card could take for this traversal: the larger of
     the compulsory bytes (tables and the 7 ray rows read once, the
     `out_words` result rows written once) over HBM bandwidth and the
     counted float32 operations over the float32 peak. `counts` holds the
-    per-ray interior pops, leaf pops, leaf rows and, for inst_trace,
-    instance entries. Returns (bound_ms, bound_by, bytes, ops)."""
+    per-ray interior pops, leaf pops, leaf rows, for inst_trace the
+    instance entries, and last the triangles that the tested leaf rows
+    hold: the padded slots of a row are not work the traversal needs.
+    Returns (bound_ms, bound_by, bytes, ops)."""
     sums = [int(c.sum()) for c in counts]
-    interior, rows = sums[0], sums[2]
-    enter = sums[3] if len(sums) > 3 else 0
+    interior, triangles = sums[0], sums[-1]
+    enter = sums[3] if len(sums) > 4 else 0
     ops = (n_rays * OPS_RAY + enter * OPS_ENTER + interior * OPS_INTERIOR
-           + rows * tris_per_row * ops_triangle + extra_ops)
+           + triangles * ops_triangle + extra_ops)
     nbytes = table_bytes + n_rays * (7 + out_words) * 4
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
     return (1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops
@@ -250,7 +324,9 @@ def main():
     def launches():
         return dict(inst_trace=trace_inst.launches,
                     wide_trace5=trace_packet.launches,
-                    wide_trace=trace_wide.launches)
+                    wide_trace=trace_wide.launches,
+                    inst_trace_simple=trace_inst.launches_simple,
+                    wide_trace5_simple=trace_packet.launches_simple)
 
     dev = torch.device(DEVICE)
     card = card_line()
@@ -322,19 +398,22 @@ def main():
     gen = torch.Generator().manual_seed(0)
     subset = torch.randperm(n_rays, generator=gen)[:SUBSET].to(dev)
 
-    # The table sets of the three kernels: (kernel, plain version, tables,
-    # result rows written, triangles a row, operations a triangle).
+    # The table sets of the three kernels: (kernel name, leaf format, the
+    # tables the kernel reads, result rows written, operations a triangle,
+    # kernel, plain version). The two redesigned kernels take
+    # variant='simple' (the baseline kernel) and their plain versions
+    # cull=False (what the baseline computes).
     def variants(fmt):
         pk, lay = packs[fmt]
         fl = flats[fmt][0]
         inst_tables = (pk.inst_nodes, pk.inst_tris, pk.inst_rows)
-        yield ('inst_trace', fmt, inst_tables, 5, 8, OPS_TRIANGLE[fmt],
+        yield ('inst_trace', fmt, inst_tables, 5, OPS_TRIANGLE[fmt],
                lambda *a, **k: trace_inst.inst_trace(
                    *inst_tables, *a, lay.tlas_rows, leaf_fmt=fmt, **k),
                lambda *a, **k: trace_inst.inst_trace_plain(
                    *inst_tables, *a, lay.tlas_rows, leaf_fmt=fmt, **k))
         v5_tables = (fl.wide_nodes_g, fl.wide_tris_g)
-        yield ('wide_trace5', fmt, v5_tables, 4, 8, OPS_TRIANGLE[fmt],
+        yield ('wide_trace5', fmt, v5_tables, 4, OPS_TRIANGLE[fmt],
                lambda *a, **k: trace_packet.wide_trace5(
                    *v5_tables, *a, leaf_fmt=fmt, **k),
                lambda *a, **k: trace_packet.wide_trace5_plain(
@@ -342,61 +421,110 @@ def main():
         if fmt == bvh8.LEAF_FMT:
             # The v3 rows hold plain positions: one format.
             v3_tables = (fl.wide_nodes, fl.wide_tris)
-            yield ('wide_trace', 'mt', v3_tables, 8, 4, OPS_TRIANGLE_V3,
+            yield ('wide_trace', 'mt', v3_tables, 8, OPS_TRIANGLE_V3,
                    lambda *a, **k: trace_wide.wide_trace(*v3_tables, *a, **k),
                    lambda *a, **k: trace_wide.wide_trace_plain(
                        *v3_tables, *a, **k))
 
+    flush_buffer = torch.empty(96 * 2**20, dtype=torch.float32, device=dev)
+    flush = flush_buffer.zero_      # 384 MiB written: nothing stays in L2
+    # The render paths feed the kernels rays in lane order unless
+    # RenderConfig.sort_rays is set: the times of record are of that order.
+    path_order = 'sorted' if config.sort_rays else 'lane'
+
     records = {}        # kernel name -> fields of the "kernels" line
-    hits = {}           # kernel name -> (t, face) on the sorted bounce rays
     for set_name, (o, d) in ray_sets.items():
         t_in = intersect_analytic(packed, layout, o, d,
                                   make_hit(n_rays, HIT_TIME_LIMIT, dev))['time']
-        unsorted_ms = {
-            'inst_trace': cuda_ms(lambda: trace_inst.inst_trace(
-                packed.inst_nodes, packed.inst_tris, packed.inst_rows, o, d,
-                t_in, layout.tlas_rows)),
-            'wide_trace5': cuda_ms(lambda: trace_packet.wide_trace5(
-                flat.wide_nodes_g, flat.wide_tris_g, o, d, t_in)),
-            'wide_trace': cuda_ms(lambda: trace_wide.wide_trace(
-                flat.wide_nodes, flat.wide_tris, o, d, t_in))}
-        log('kernel_unsorted', set=set_name, leaf_fmt=bvh8.LEAF_FMT,
-            rays=n_rays, ms=unsorted_ms)
-        # The main path feeds the kernels rays in ray_sort_key order.
         perm = torch.argsort(ray_sort_key(packed, o, d), stable=True)
         rays = (o[:, perm].contiguous(), d[:, perm].contiguous(),
                 t_in[perm].contiguous())
+        orders = {'sorted': rays, 'lane': (o, d, t_in)}
         sub_rays = tuple(x[..., subset].contiguous() for x in rays)
         for fmt in LEAF_FMTS:
-            for (name, leaf_fmt, tables, out_words, per_row, ops_tri, kernel,
+            for (name, leaf_fmt, tables, out_words, ops_tri, kernel,
                  plain) in variants(fmt):
-                *out, counts = kernel(*rays, stats=True)
+                # What is compared and timed is the launch the render paths
+                # make, without counters. The counters come from a second
+                # launch (another instantiation of the kernel's template),
+                # whose results must be the same.
+                out = kernel(*rays)
+                *counted, counts = kernel(*rays, stats=True)
                 torch.cuda.synchronize()
                 label = f'{set_name}/{leaf_fmt}'
+                if not all(torch.equal(a, b) for a, b in zip(out, counted)):
+                    raise RuntimeError(f'{name} on {label}: the launch with '
+                                       'counters gives other results')
+                del counted
                 err, agree = compare(name, label,
                                      [x[..., subset] for x in out],
                                      plain(*sub_rays))
-                ms = cuda_ms(lambda: kernel(*rays))
+                rec = records.setdefault(name, dict(max_abs_err=0.0,
+                                                    agreement=1.0))
+                main_fmt = fmt == bvh8.LEAF_FMT
+                redesigned = name != 'wide_trace'
+                if redesigned:
+                    # The baseline kernel: no pop cull, so held to the plain
+                    # version without it.
+                    simple_out = kernel(*rays, variant='simple')
+                    torch.cuda.synchronize()
+                    s_err, s_agree = compare(
+                        name + '_simple', label,
+                        [x[..., subset] for x in simple_out],
+                        plain(*sub_rays, cull=False))
+                    err, agree = max(err, s_err), min(agree, s_agree)
+                    if main_fmt:
+                        t_other = int((simple_out[0] != out[0]).sum())
+                        face_other = int((simple_out[1] != out[1]).sum())
+                        log('pop_cull', kernel=name, set=set_name, rays=n_rays,
+                            t_differs=t_other, face_differs=face_other)
+                        if t_other > 20 or face_other > 200:
+                            raise RuntimeError(
+                                f'the pop cull of {name} changes {t_other} '
+                                f'distances and {face_other} faces')
+                    del simple_out
+                # Times: every format on the sorted rays; the scene's own
+                # format in both orders, warm and cold, and the baseline
+                # kernel beside it.
+                timed = orders if main_fmt else {'sorted': rays}
+                ms = {k: cuda_ms(lambda: kernel(*r)) for k, r in timed.items()}
+                ms_cold = {k: cuda_ms(lambda: kernel(*r), flush=flush)
+                           for k, r in timed.items()}
+                simple_ms = ({k: cuda_ms(lambda: kernel(*r, variant='simple'))
+                              for k, r in timed.items()} if redesigned else None)
                 n_hit = int((out[1] >= 0).sum())
                 bound_ms, bound_by, bound_bytes, ops = kernel_bound(
                     counts, n_rays, nbytes(*tables), out_words, ops_tri,
-                    per_row, OPS_LERP_V3 * n_hit if name == 'wide_trace' else 0)
+                    OPS_LERP_V3 * n_hit if name == 'wide_trace' else 0)
                 per_ray = [c.float().mean().item() for c in counts]
                 log('kernel', kernel=name, set=set_name, leaf_fmt=leaf_fmt,
-                    rays=n_rays, ms=ms, mrays_s=n_rays / ms / 1e3,
+                    rays=n_rays, ms=ms, ms_cold=ms_cold, simple_ms=simple_ms,
+                    mrays_s=n_rays / ms['sorted'] / 1e3,
                     bound_ms=bound_ms, bound_by=bound_by,
                     compulsory_bytes=bound_bytes, f32_ops=ops,
                     per_ray_interior_pops=per_ray[0],
                     per_ray_leaf_pops=per_ray[1], per_ray_leaf_rows=per_ray[2],
-                    per_ray_instance_entries=(per_ray[3] if len(per_ray) > 3
+                    per_ray_instance_entries=(per_ray[3] if len(per_ray) > 4
                                               else None),
-                    row_bytes_popped=512 * int(counts[0].sum() + counts[2].sum()),
+                    per_ray_triangles=per_ray[-1],
                     hit_fraction=n_hit / n_rays)
-                rec = records.setdefault(name, dict(max_abs_err=0.0,
-                                                    agreement=1.0))
                 rec['max_abs_err'] = max(rec['max_abs_err'], err)
                 rec['agreement'] = min(rec['agreement'], agree)
-                if set_name == 'bounce' and fmt == bvh8.LEAF_FMT:
+                if main_fmt and redesigned:
+                    # What each kernel measures of itself, and the two
+                    # kernels in turns on sorted and unsorted rays.
+                    for variant in ('tuned', 'simple'):
+                        log('kernel_anatomy', kernel=name, set=set_name,
+                            variant=variant, rays=n_rays,
+                            **kernel(*rays, variant=variant, anatomy=True)[-1])
+                    calls = {f'{variant}_{order}': (
+                        lambda r=r, variant=variant: kernel(*r, variant=variant))
+                        for order, r in orders.items()
+                        for variant in ('tuned', 'simple')}
+                    log('kernel_ab', kernel=name, set=set_name, rays=n_rays,
+                        ms=time_in_turns(calls, TIMING_REPS),
+                        ms_cold=time_in_turns(calls, TIMING_REPS, flush=flush))
+                if set_name == 'bounce' and main_fmt:
                     # The main path's steady state: time the plain version
                     # on the same 2,073,600 rays, once, and check all of them.
                     torch.cuda.synchronize()
@@ -405,7 +533,10 @@ def main():
                     torch.cuda.synchronize()
                     plain_ms = 1e3 * (time.perf_counter() - t0)
                     err, agree = compare(name, label + '/all', out, plain_full)
-                    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    rec.update(ms=ms[path_order], ms_cold=ms_cold[path_order],
+                               ms_sorted=ms['sorted'], ms_lane=ms['lane'],
+                               simple_ms=simple_ms and simple_ms[path_order],
+                               plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by,
                                max_abs_err=max(rec['max_abs_err'], err),
                                agreement=min(rec['agreement'], agree))
@@ -441,7 +572,7 @@ def main():
         max_t_difference=max((ts[0] - x).abs().max().item() for x in ts[1:]),
         launches=direct_launches)
     if not (mask_agreement > 0.995 and t_agreement > 0.999
-            and min(direct_launches.values()) == 1):
+            and all(direct_launches[name] == 1 for name in hits)):
         raise RuntimeError('the three kernels disagree on the bounce rays')
     records['wide_trace']['launches'] = direct_launches['wide_trace']
     del hits, masks, ts, ray_sets
@@ -471,10 +602,22 @@ def main():
                 torch.isfinite(image).all()):
             raise RuntimeError(f'bad image {tuple(image.shape)}')
         round_ms = 1e3 * elapsed / TIMED_ROUNDS
-        trace_ms, trace_unsorted_ms = (
-            cuda_ms(lambda: trace(pk, lay, state['origin'], state['direction'],
-                                  sort_rays=sort_rays))
-            for sort_rays in (True, False))
+        # `trace` with and without the ray sort, on the rays of this state
+        # and on fresh primary rays: what decides RenderConfig.sort_rays.
+        fresh = wavefront.reset(pk, config, seed=1)
+        sort_ms = {}
+        for set_name, rs in (('bounce', state), ('primary', fresh)):
+            sort_ms[set_name] = {
+                order: cuda_ms(lambda: trace(pk, lay, rs['origin'],
+                                             rs['direction'], sort_rays=flag))
+                for order, flag in (('sorted', True), ('unsorted', False))}
+        del fresh
+        log('trace_sort', packet_mode=mode, rays=n_rays, ms=sort_ms,
+            unsorted_faster={k: v['unsorted'] < v['sorted']
+                             for k, v in sort_ms.items()},
+            default_sort_rays=config.sort_rays)
+        trace_ms = sort_ms['bounce']['sorted']
+        trace_unsorted_ms = sort_ms['bounce']['unsorted']
         log('render', packet_mode=mode, width=WIDTH, height=HEIGHT,
             rounds=TIMED_ROUNDS, seconds=elapsed,
             mrays_s=n_rays * TIMED_ROUNDS / elapsed / 1e6, round_ms=round_ms,
@@ -574,7 +717,8 @@ def main():
         name=name, route='cuda',
         source='path_tracer_tpu_torch/csrc/' + sources[name][0],
         replaces=sources[name][1], library_ms=None, **records[name])
-        for name in sources]}))
+        for name in sources],
+        'ray_order': path_order}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}))

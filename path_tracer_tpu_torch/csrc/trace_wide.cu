@@ -57,6 +57,7 @@ wide_trace_kernel(const float* __restrict__ nodes,
   int face = -1, shape = 0;
   float nx = 0.0f, ny = 0.0f, nz = 0.0f, tu = 0.0f, tv = 0.0f;
   int n_interior = 0, n_leaf = 0, n_rows = 0;
+  int n_tris = 0;  // filled slots of the leaf rows tested
 
   int stack[STACK_DEPTH];
   int sp = 1;
@@ -89,6 +90,7 @@ wide_trace_kernel(const float* __restrict__ nodes,
       for (int rr = 0; rr < LEAF_ROWS; ++rr) {
         if (rr > 0 && count <= TRIS_PER_ROW * rr) break;
         ++n_rows;
+        n_tris += min(TRIS_PER_ROW, count - TRIS_PER_ROW * rr);
         const float* row = tris + (size_t)(tri_row + rr) * ROW;
 #pragma unroll 2
         for (int k = 0; k < TRIS_PER_ROW; ++k) {
@@ -131,6 +133,7 @@ wide_trace_kernel(const float* __restrict__ nodes,
     stats[i] = n_interior;
     stats[n + i] = n_leaf;
     stats[2 * n + i] = n_rows;
+    stats[3 * n + i] = n_tris;
   }
 }
 

@@ -1,7 +1,17 @@
-// Pieces shared by the BVH8 traversal kernels of this directory
-// (trace_inst.cu, trace_packet.cu, trace_wide.cu): the table layout of
-// scene/bvh8.py, the slab test of a node row's eight child boxes and the
-// triangle tests of the three leaf geometry formats.
+// Pieces shared by the BVH8 traversal kernels of this directory: the table
+// layout, the slab test of a node row's eight child boxes, the triangle
+// tests of the three leaf geometry formats, the stack entry and the
+// counters with which a kernel measures itself.
+//
+// All kernels read the 128-lane float32 rows of scene/bvh8.py as they are.
+// The lane count was the TPU's vector width and half of a row is padding,
+// but rows packed for this card (a 256-byte node row with integer metas and
+// precomputed push ranks, a 384-byte leaf row) measured 1-3% (trace_packet.cu)
+// and 6-8% (trace_inst.cu) faster, under the 9% by which two runs differ:
+// a warp's lanes mostly fetch the same row, so the padding is never read
+// and costs nothing. `slab_hits` is the slab test of trace_wide.cu and the
+// *_simple kernels; trace_inst.cu and trace_packet.cu use `slab_entries`,
+// which also leaves entry distances and metas in registers.
 //
 // Every expression here is written in the order of its plain PyTorch
 // version (ops/trace_inst.py: safe_inv, leaf_tests; the slab test of the
@@ -138,6 +148,109 @@ __device__ __forceinline__ bool leaf_triangle(int fmt, const float* g,
   }
   return (hu >= 0.0f) && (hv >= 0.0f) && (hu + hv <= 1.0f) && (ft >= 0.0f) &&
          (ft < t);
+}
+
+// ---- one round trip a pop ---------------------------------------------------
+
+// Ranks from a push-order word (lanes PERM_LANE + octant of a node row):
+// the order holds the child pushed k-th in bits 3k..3k+2, the ranks hold in
+// bits 3c..3c+2 the position at which child c is pushed.
+__device__ __forceinline__ int ranks_from_order(int order) {
+  int ranks = 0;
+#pragma unroll
+  for (int k = 1; k < 8; ++k) ranks |= k << (3 * ((order >> (3 * k)) & 7));
+  return ranks;
+}
+
+// A node row in one round trip: the twelve box loads and the two meta loads
+// are independent, so they are all in flight before the first is used. Slab
+// test as `slab_hits`, expression for expression; besides the hit mask (bit
+// ch set when the ray enters the non-empty child ch before t) it leaves each
+// child's entry distance and meta in registers.
+__device__ __forceinline__ unsigned slab_entries(const float* __restrict__ row,
+                                                 const float inv[3],
+                                                 const float oinv[3], float t,
+                                                 float entry[8], int meta[8]) {
+  float b[48];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    const float4 x = ld4(row + 4 * j);
+    b[4 * j] = x.x;
+    b[4 * j + 1] = x.y;
+    b[4 * j + 2] = x.z;
+    b[4 * j + 3] = x.w;
+  }
+  const float4 m0 = ld4(row + META_LANE), m1 = ld4(row + META_LANE + 4);
+  meta[0] = exact_int(m0.x); meta[1] = exact_int(m0.y);
+  meta[2] = exact_int(m0.z); meta[3] = exact_int(m0.w);
+  meta[4] = exact_int(m1.x); meta[5] = exact_int(m1.y);
+  meta[6] = exact_int(m1.z); meta[7] = exact_int(m1.w);
+  unsigned hit = 0;
+#pragma unroll
+  for (int ch = 0; ch < 8; ++ch) {
+    const float tx0 = b[ch] * inv[0] - oinv[0];
+    const float ty0 = b[8 + ch] * inv[1] - oinv[1];
+    const float tz0 = b[16 + ch] * inv[2] - oinv[2];
+    const float tx1 = b[24 + ch] * inv[0] - oinv[0];
+    const float ty1 = b[32 + ch] * inv[1] - oinv[1];
+    const float tz1 = b[40 + ch] * inv[2] - oinv[2];
+    entry[ch] =
+        fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+    const float exit_ =
+        fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+    // Empty slots (meta == 0) have inverted boxes that can pass the
+    // symmetric slab test; they are never pushed.
+    const bool ok = (exit_ >= entry[ch]) && (exit_ > 0.0f) &&
+                    (entry[ch] < t) && (entry[ch] < PASS_LIMIT) &&
+                    (meta[ch] != 0);
+    hit |= (unsigned)ok << ch;
+  }
+  return hit;
+}
+
+// ---- the per-thread stack ------------------------------------------------
+
+// A stack entry: the node (or leaf code, or instance tag) and the distance
+// at which the ray enters its box, kept so that a pop can be dropped
+// without its row once a closer hit is known. The stack is a per-thread
+// array in local memory; entries at depth >= DEPTH are dropped.
+template <int DEPTH>
+__device__ __forceinline__ void stack_put(int2* stack, int k, int v,
+                                          float entry) {
+  if (k < DEPTH) stack[k] = make_int2(v, __float_as_int(entry));
+}
+
+// ---- a kernel's measurement of itself (stats launches only) ---------------
+
+// Counters one warp keeps for its 32 rays, in `warp_stats[warp * WARP_STATS
+// + ...]`: for each body of the loop the times the warp ran it and the lanes
+// that were active in it, the loop iterations of the warp, and for the
+// interior and leaf bodies the distinct table rows its active lanes fetched.
+constexpr int WARP_STATS = 12;
+constexpr int WS_LOOP = 0;            // loop iterations, then active lanes
+constexpr int WS_TAG = 2, WS_INTERIOR = 4, WS_LEAF = 6;
+constexpr int WS_INTERIOR_ROWS = 8, WS_LEAF_ROWS = 9;
+constexpr int WS_CULL = 10;           // culled pops: times, then lanes
+
+// Called by every lane that is in a body: the first active lane adds one
+// pass and the count of active lanes to the warp's counters.
+__device__ __forceinline__ void note_pass(int* ws, int body) {
+  const unsigned act = __activemask();
+  if ((threadIdx.x & 31) == __ffs(act) - 1) {
+    atomicAdd(ws + body, 1);
+    atomicAdd(ws + body + 1, __popc(act));
+  }
+}
+
+// Adds the number of distinct `row` values among the active lanes: 1 when
+// the whole warp reads one row (a broadcast), up to 32 when every lane
+// reads its own.
+__device__ __forceinline__ void note_rows(int* ws, int slot, int row) {
+  const unsigned act = __activemask();
+  const unsigned peers = __match_any_sync(act, row);
+  const unsigned leaders =
+      __ballot_sync(act, (threadIdx.x & 31) == __ffs(peers) - 1);
+  if ((threadIdx.x & 31) == __ffs(act) - 1) atomicAdd(ws + slot, __popc(leaders));
 }
 
 }  // namespace traverse

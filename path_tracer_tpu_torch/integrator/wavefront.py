@@ -44,8 +44,14 @@ class RenderConfig:
     # Feed the mesh trace rays sorted by (direction octant, origin
     # Morton cell, direction Morton) every round (ops.intersect.trace
     # sort_rays); the state itself stays in lane order. The sort changes
-    # which rays share a warp, not the results.
-    sort_rays: bool = True
+    # which rays share a warp, not the results. Off by default, unlike in
+    # the JAX package, whose 3072-ray packets need the coherence: at
+    # 1920x1080 on an H100 the kernels gain 0.1-0.15 ms from sorted bounce
+    # rays and nothing from sorted primary rays, and `trace` is 1.3-2.9 ms
+    # slower with the argsort and its row permutations than without, in
+    # both packet modes and on both kinds of rays (chip_smoke.py, phase
+    # `trace_sort`; PERF.md).
+    sort_rays: bool = False
     # Independent sample waves held in flight: the state carries
     # waves * width * height slots (slot = wave * n_pixels + lane, each
     # slot its own RNG stream of the same pixel grid) and every round
@@ -56,9 +62,9 @@ class RenderConfig:
 
 
 def wants_sort(config: RenderConfig, layout) -> bool:
-    """The per-round coherence sort runs whenever a mesh traversal
-    kernel does, in either packet mode; analytic-only scenes have no
-    traversal to feed."""
+    """The per-round coherence sort runs when the configuration asks for
+    it and a mesh traversal kernel runs, in either packet mode;
+    analytic-only scenes have no traversal to feed."""
     return bool(config.sort_rays and layout is not None
                 and layout.instance_slots)
 

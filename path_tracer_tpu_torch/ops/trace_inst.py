@@ -1,4 +1,4 @@
-"""Two-level instanced BVH8 traversal: CUDA kernel, plain version, resolve.
+"""Two-level instanced BVH8 traversal: CUDA kernels, plain version, resolve.
 
 Port of path_tracer_tpu/ops/trace_inst.py. `inst_trace` traces world
 rays against the tables that scene/compile.py builds in 'inst' mode:
@@ -13,9 +13,17 @@ rays against the tables that scene/compile.py builds in 'inst' mode:
 
 and returns (t, face, fu, fv, inst), face = (leaf_row + r) * 8 + k and
 inst = -1 on a miss. On a CUDA tensor it launches the hand-written
-kernel csrc/trace_inst.cu; on a CPU tensor it runs `inst_trace_plain`,
-the same per-ray traversal written in PyTorch. There is no fallback
-from one to the other.
+kernel csrc/trace_inst.cu, or, for variant='simple', the first kernel of
+the port, csrc/trace_inst_simple.cu, which is kept as the baseline to
+measure against; on a CPU tensor it runs `inst_trace_plain`, the same
+per-ray traversal written in PyTorch. There is no fallback from one to
+the other.
+
+A stack entry carries the distance at which the ray enters the node's
+box, and a pop whose entry is no longer before the ray's t is dropped
+without fetching its row (the pop cull). Kernel and plain version cull
+alike; the simple kernel does not cull, and equals the plain version
+with cull=False.
 """
 
 from __future__ import annotations
@@ -30,13 +38,19 @@ PASS_LIMIT = 0.5 * bvh8.BIG
 LEAF_ROWS = bvh8.LEAF_MAX // 8
 LEAF_FMTS = {'mt': 0, 'bary': 1, 'woop': 2}
 
-# Kernel launches made through inst_trace (CUDA tensors only).
+VARIANTS = ('tuned', 'simple')
+WARP_STATS = 12          # csrc/traverse.cuh
+
+# Kernel launches made through inst_trace (CUDA tensors only): of the
+# kernel the render path runs, and of the baseline kernel.
 launches = 0
+launches_simple = 0
 
 
 def reset_launches():
-    global launches
+    global launches, launches_simple
     launches = 0
+    launches_simple = 0
 
 
 def safe_inv(d):
@@ -51,14 +65,18 @@ def _octant(d):
 
 
 def inst_trace_plain(nodes, tris, inst_rows, origin, direction, t_in,
-                     tlas_rows, leaf_fmt=None, stats=False):
+                     tlas_rows, leaf_fmt=None, stats=False, cull=True,
+                     stack_depth=STACK_DEPTH):
     """The kernel's traversal, vectorized over rays in plain PyTorch.
 
-    Every ray owns a (STACK_DEPTH,) stack; each loop iteration pops one
-    entry from every ray whose stack is not empty and handles it as an
-    instance tag, an interior node or a leaf, with the kernel's
-    arithmetic in the kernel's order, until every stack is empty.
-    Arguments and results as `inst_trace`.
+    Every ray owns a stack of `stack_depth` (node, entry distance)
+    pairs; each loop iteration pops one entry from every ray whose stack
+    is not empty, drops it when `cull` and its entry distance is not
+    before the ray's t, and otherwise handles it as an instance tag, an
+    interior node or a leaf, with the kernel's arithmetic in the kernel's
+    order, until every stack is empty. Pushes past the depth are dropped.
+    Arguments and results as `inst_trace`; the counters count the pops
+    that were not dropped.
     """
     leaf_fmt = bvh8.LEAF_FMT if leaf_fmt is None else leaf_fmt
     dev = origin.device
@@ -77,14 +95,16 @@ def inst_trace_plain(nodes, tris, inst_rows, origin, direction, t_in,
     fv = torch.zeros(n, dtype=torch.float32, device=dev)
     inst = torch.full((n,), -1, dtype=torch.int32, device=dev)
     cur = torch.zeros(n, dtype=torch.int32, device=dev)
-    counts = torch.zeros((4, n), dtype=torch.int32, device=dev)
-    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
+    counts = torch.zeros((5, n), dtype=torch.int32, device=dev)
+    stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
+    entered = torch.zeros((n, stack_depth), dtype=torch.float32, device=dev)
     sp = torch.ones(n, dtype=torch.int64, device=dev)
 
-    def push(idx, value, ok):
-        ok = ok & (sp[idx] < STACK_DEPTH)
+    def push(idx, value, entry, ok):
+        ok = ok & (sp[idx] < stack_depth)
         rows = idx[ok]
         stack[rows, sp[rows]] = value[ok]
+        entered[rows, sp[rows]] = entry[ok]
         sp[rows] += 1
 
     while True:
@@ -93,8 +113,13 @@ def inst_trace_plain(nodes, tris, inst_rows, origin, direction, t_in,
             break
         sp[act] -= 1
         v = stack[act, sp[act]]
+        e = entered[act, sp[act]]
+        if cull:
+            keep = e < t[act]
+            act, v, e = act[keep], v[keep], e[keep]
 
-        # Instance tags: object-space ray registers, push the mesh root.
+        # Instance tags: object-space ray registers, push the mesh root
+        # with the distance to the instance's box.
         sel = v >= INST_BASE
         if bool(sel.any()):
             idx = act[sel]
@@ -112,7 +137,7 @@ def inst_trace_plain(nodes, tris, inst_rows, origin, direction, t_in,
             r_p[idx] = ro * inv
             r_oct[idx] = _octant(rd)
             cur[idx] = k.to(torch.int32)
-            push(idx, m[:, 12].round().to(torch.int64),
+            push(idx, m[:, 12].round().to(torch.int64), e[sel],
                  torch.ones_like(idx, dtype=torch.bool))
 
         # Interior nodes: world ray on TLAS rows, object ray below them.
@@ -139,7 +164,8 @@ def inst_trace_plain(nodes, tris, inst_rows, origin, direction, t_in,
             for k in range(8):
                 ch = ((perm >> (3 * k)) & 7)[:, None]
                 m = metas.gather(1, ch)[:, 0]
-                push(idx, m, hit.gather(1, ch)[:, 0] & (m != 0))
+                push(idx, m, entry.gather(1, ch)[:, 0],
+                     hit.gather(1, ch)[:, 0] & (m != 0))
 
         # Leaves: up to LEAF_ROWS rows of 8 triangles.
         sel = v < 0
@@ -153,6 +179,7 @@ def inst_trace_plain(nodes, tris, inst_rows, origin, direction, t_in,
                 keep = count > 8 * rr if rr else torch.ones_like(count, dtype=torch.bool)
                 ridx, rcount = idx[keep], count[keep]
                 counts[2, ridx] += 1
+                counts[4, ridx] += torch.clamp(rcount - 8 * rr, max=8).to(torch.int32)
                 row_id = leaf_row[keep] + rr
                 g = tris[row_id].reshape(-1, 8, 16)
                 o = r_o[ridx][:, :, None]
@@ -244,9 +271,60 @@ def check_tensor(name, x, device, shape):
         raise ValueError(f'{name} has shape {tuple(x.shape)}, expected {shape}')
 
 
+def stats_buffers(stats, rows, n, device):
+    """The two counter buffers of a stats launch: (rows, n) per-ray
+    counters and zeroed (ceil(n / 32), WARP_STATS) per-warp counters;
+    both empty when `stats` is false."""
+    if not stats:
+        empty = torch.empty((0,), dtype=torch.int32, device=device)
+        return empty, empty
+    return (torch.empty((rows, n), dtype=torch.int32, device=device),
+            torch.zeros(((n + 31) // 32, WARP_STATS), dtype=torch.int32,
+                        device=device))
+
+
+def anatomy_record(per_ray, warps, rows):
+    """What a stats launch measured of itself, as a dict of numbers.
+
+    per_ray is the kernel's (rows + 2, N) counter tensor (the deepest
+    stack and the culled pops follow the `rows` pop counters), warps the
+    (N / 32, WARP_STATS) per-warp counters of csrc/traverse.cuh. SIMT
+    efficiency of a body = lanes active in it / (32 x the times a warp
+    ran it); for the loop as a whole (`simt_loop`) that is the pops of a
+    warp's mean ray over the iterations the warp ran, 1 when all its
+    rays end together; `rows_per_pass` = distinct table rows the active
+    lanes of one pass fetch (1 = a broadcast, 32 = every lane its own
+    row).
+    """
+    w = warps.to(torch.float64).sum(0).tolist()
+    deepest = per_ray[rows].to(torch.float32)
+
+    def ratio(a, b):
+        return a / b if b else None
+
+    rec = dict(
+        warp_loop_iterations=w[0],
+        simt_loop=ratio(w[1], 32 * w[0]),
+        culled_pops_per_ray=per_ray[rows + 1].float().mean().item(),
+        deepest_stack_max=int(deepest.max()),
+        deepest_stack_mean=deepest.mean().item(),
+        stack_over_8=(deepest > 8).float().mean().item(),
+        stack_over_16=(deepest > 16).float().mean().item(),
+        stack_over_24=(deepest > 24).float().mean().item(),
+        stack_over_32=(deepest > 32).float().mean().item())
+    for name, at in (('tag', 2), ('interior', 4), ('leaf', 6), ('cull', 10)):
+        rec[f'passes_{name}'] = w[at]
+        rec[f'simt_{name}'] = ratio(w[at + 1], 32 * w[at])
+    rec['interior_rows_per_pass'] = ratio(w[8], w[4])
+    rec['interior_lanes_per_row'] = ratio(w[5], w[8])
+    rec['leaf_rows_per_pass'] = ratio(w[9], w[6])
+    rec['leaf_lanes_per_row'] = ratio(w[7], w[9])
+    return rec
+
+
 def _inst_trace_cuda(nodes, tris, inst_rows, origin, direction, t_in,
-                     tlas_rows, leaf_fmt, stats):
-    global launches
+                     tlas_rows, leaf_fmt, stats, variant, anatomy):
+    global launches, launches_simple
     dev = origin.device
     n = origin.shape[-1]
     for name, x in (('nodes', nodes), ('tris', tris), ('inst_rows', inst_rows)):
@@ -256,45 +334,63 @@ def _inst_trace_cuda(nodes, tris, inst_rows, origin, direction, t_in,
     check_tensor('t_in', t_in, dev, (n,))
     if leaf_fmt not in LEAF_FMTS:
         raise NotImplementedError(f'leaf format {leaf_fmt!r}')
+    if variant not in VARIANTS:
+        raise ValueError(f'unknown kernel variant {variant!r}')
     t = torch.empty(n, dtype=torch.float32, device=dev)
     face = torch.empty(n, dtype=torch.int32, device=dev)
     fu = torch.empty(n, dtype=torch.float32, device=dev)
     fv = torch.empty(n, dtype=torch.float32, device=dev)
     inst = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.empty((4, n) if stats else (0,), dtype=torch.int32,
-                         device=dev)
+    per_ray, warps = stats_buffers(stats or anatomy, 7, n, dev)
     from .build import load
-    err = load().inst_trace(nodes, tris, inst_rows, origin, direction, t_in,
-                            int(tlas_rows), LEAF_FMTS[leaf_fmt], t, face, fu,
-                            fv, inst, counts,
-                            torch.cuda.current_stream(dev).cuda_stream)
+    ext = load()
+    kernel = ext.inst_trace_simple if variant == 'simple' else ext.inst_trace
+    err = kernel(nodes, tris, inst_rows, origin, direction, t_in,
+                 int(tlas_rows), LEAF_FMTS[leaf_fmt], t, face, fu, fv, inst,
+                 per_ray, warps, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'inst_trace kernel launch failed: cudaError {err}')
-    launches += 1
+    if variant == 'simple':
+        launches_simple += 1
+    else:
+        launches += 1
+    out = (t, face, fu, fv, inst)
     if stats:
-        return t, face, fu, fv, inst, counts
-    return t, face, fu, fv, inst
+        out += (per_ray[:5],)
+    if anatomy:
+        out += (anatomy_record(per_ray, warps, 5),)
+    return out
 
 
 def inst_trace(nodes, tris, inst_rows, origin, direction, t_in, tlas_rows,
-               leaf_fmt=None, stats=False):
+               leaf_fmt=None, stats=False, variant='tuned', anatomy=False):
     """Trace world rays (origin/direction (3, N), t_in (N,)) against the
     two-level tables; tlas_rows is the count of TLAS rows at the head
     of `nodes`.
 
-    Returns (t, face, fu, fv, inst), plus a (4, N) int32 tensor of
-    per-ray interior pops, leaf pops, leaf rows tested and instance
-    entries when `stats`.
-    CUDA tensors launch the CUDA kernel (and count one launch in
-    `launches`); CPU tensors run `inst_trace_plain`.
+    Returns (t, face, fu, fv, inst), plus a (5, N) int32 tensor of
+    per-ray interior pops, leaf pops, leaf rows tested, instance entries
+    and triangles in the tested rows when `stats`.
+    CUDA tensors launch a CUDA kernel: csrc/trace_inst.cu (counted in
+    `launches`), or csrc/trace_inst_simple.cu (counted in
+    `launches_simple`) for variant='simple'. `anatomy` appends the dict
+    of `anatomy_record`: what the kernel measured of itself in that
+    launch. CPU tensors run `inst_trace_plain`, with the pop cull unless
+    variant='simple'.
     """
     leaf_fmt = bvh8.LEAF_FMT if leaf_fmt is None else leaf_fmt
     if origin.device.type == 'cuda':
         return _inst_trace_cuda(nodes, tris, inst_rows, origin, direction,
-                                t_in, tlas_rows, leaf_fmt, stats)
+                                t_in, tlas_rows, leaf_fmt, stats, variant,
+                                anatomy)
     if origin.device.type == 'cpu':
+        if anatomy:
+            raise ValueError('only the CUDA kernels measure their anatomy')
+        if variant not in VARIANTS:
+            raise ValueError(f'unknown kernel variant {variant!r}')
         return inst_trace_plain(nodes, tris, inst_rows, origin, direction,
-                                t_in, tlas_rows, leaf_fmt, stats)
+                                t_in, tlas_rows, leaf_fmt, stats,
+                                cull=variant != 'simple')
     raise ValueError(f'inst_trace: unsupported device {origin.device}')
 
 

@@ -15,9 +15,16 @@ and returns (t, face, fu, fv), face = (leaf_row + r) * 8 + k, or -1
 where nothing closer than t_in was hit. `resolve_wide_attributes` lerps
 normals and uvs of the winners from the (slots, 16) side table. On a
 CUDA tensor `wide_trace5` launches the hand-written kernel
-csrc/trace_packet.cu; on a CPU tensor it runs `wide_trace5_plain`, the
-same per-ray traversal written in PyTorch. There is no fallback from one
-to the other.
+csrc/trace_packet.cu, or, for variant='simple', the first kernel of the
+port, csrc/trace_packet_simple.cu, which is kept as the baseline to
+measure against; on a CPU tensor it runs `wide_trace5_plain`, the same per-ray traversal written
+in PyTorch. There is no fallback from one to the other.
+
+A stack entry carries the distance at which the ray enters the node's
+box, and a pop whose entry is no longer before the ray's t is dropped
+without fetching its row (the pop cull). Kernel and plain version cull
+alike; the simple kernel and `wide_trace` do not cull, and equal their
+plain versions with cull=False.
 
 Where the JAX kernel flips a node's push order by the sign of a 1024-ray
 packet's summed direction along the node's axis, kernel and plain
@@ -32,35 +39,43 @@ from __future__ import annotations
 import torch
 
 from ..scene import bvh8
-from .trace_inst import LEAF_FMTS, check_tensor, leaf_tests, safe_inv
+from .trace_inst import (
+    LEAF_FMTS, VARIANTS, anatomy_record, check_tensor, leaf_tests, safe_inv,
+    stats_buffers)
 
 STACK_DEPTH = 96
 PASS_LIMIT = 0.5 * bvh8.BIG
 LEAF_ROWS = bvh8.LEAF_MAX // 8
 
-# Kernel launches made through wide_trace5 (CUDA tensors only).
+# Kernel launches made through wide_trace5 (CUDA tensors only): of the
+# kernel the render path runs, and of the baseline kernel.
 launches = 0
+launches_simple = 0
 
 
 def reset_launches():
-    global launches
+    global launches, launches_simple
     launches = 0
+    launches_simple = 0
 
 
 def traverse_plain(nodes, origin, direction, t, leaf, leaf_rows,
-                   tris_per_row):
+                   tris_per_row, cull, stack_depth=STACK_DEPTH):
     """The stack walk both flat kernels share, vectorized over rays.
 
-    Every ray owns a (STACK_DEPTH,) stack that starts at the root; each
-    loop iteration pops one entry from every ray whose stack is not
-    empty. An interior pop slab-tests the eight child boxes against the
-    ray's current `t` and pushes the entered, non-empty children in the
-    order the ray's direction along the node's axis gives. A leaf pop
+    Every ray owns a stack of `stack_depth` (node, entry distance) pairs
+    that starts at the root; each loop iteration pops one entry from
+    every ray whose stack is not empty, and drops it when `cull` and its
+    entry distance is not before the ray's current `t`. An interior pop
+    slab-tests the eight child boxes against `t` and pushes the entered,
+    non-empty children in the order the ray's direction along the node's
+    axis gives; pushes past the depth are dropped. A leaf pop
     calls `leaf(ridx, row_id, count, rr, o, d)` once for each of its
     rows (later rows only where count > tris_per_row * rr) with the rays
     `ridx` that test table row `row_id`; `leaf` updates `t` and its own
-    outputs in place. Returns the (3, N) int32 per-ray counts of
-    interior pops, leaf pops and leaf rows.
+    outputs in place. Returns the (4, N) int32 per-ray counts of
+    interior pops, leaf pops, leaf rows and the triangles those rows hold
+    (of the pops not dropped).
     """
     dev = origin.device
     n = origin.shape[1]
@@ -68,8 +83,9 @@ def traverse_plain(nodes, origin, direction, t, leaf, leaf_rows,
     d = direction.T.contiguous()
     inv = safe_inv(d)
     p = o * inv
-    counts = torch.zeros((3, n), dtype=torch.int32, device=dev)
-    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
+    counts = torch.zeros((4, n), dtype=torch.int32, device=dev)
+    stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
+    entered = torch.zeros((n, stack_depth), dtype=torch.float32, device=dev)
     sp = torch.ones(n, dtype=torch.int64, device=dev)
 
     while True:
@@ -78,6 +94,9 @@ def traverse_plain(nodes, origin, direction, t, leaf, leaf_rows,
             break
         sp[act] -= 1
         v = stack[act, sp[act]]
+        if cull:
+            keep = entered[act, sp[act]] < t[act]
+            act, v = act[keep], v[keep]
 
         sel = v >= 0
         if bool(sel.any()):
@@ -102,9 +121,10 @@ def traverse_plain(nodes, origin, direction, t, leaf, leaf_rows,
                 ch = torch.where(flip, torch.full_like(axis, 7 - i),
                                  torch.full_like(axis, i))[:, None]
                 m = metas.gather(1, ch)[:, 0]
-                ok = hit.gather(1, ch)[:, 0] & (m != 0) & (sp[idx] < STACK_DEPTH)
+                ok = hit.gather(1, ch)[:, 0] & (m != 0) & (sp[idx] < stack_depth)
                 rows = idx[ok]
                 stack[rows, sp[rows]] = m[ok]
+                entered[rows, sp[rows]] = entry.gather(1, ch)[:, 0][ok]
                 sp[rows] += 1
 
         sel = v < 0
@@ -119,13 +139,16 @@ def traverse_plain(nodes, origin, direction, t, leaf, leaf_rows,
                         else torch.ones_like(count, dtype=torch.bool))
                 ridx = idx[keep]
                 counts[2, ridx] += 1
+                counts[3, ridx] += torch.clamp(
+                    count[keep] - tris_per_row * rr, max=tris_per_row
+                ).to(torch.int32)
                 leaf(ridx, leaf_row[keep] + rr, count[keep], rr,
                      o[ridx][:, :, None], d[ridx][:, :, None])
     return counts
 
 
 def wide_trace5_plain(nodes, tris_g, origin, direction, t_in, leaf_fmt=None,
-                      stats=False):
+                      stats=False, cull=True, stack_depth=STACK_DEPTH):
     """The kernel's traversal in plain PyTorch (`traverse_plain` with the
     8-triangle geometry rows), with the kernel's arithmetic in the
     kernel's order. Arguments and results as `wide_trace5`."""
@@ -150,7 +173,8 @@ def wide_trace5_plain(nodes, tris_g, origin, direction, t_in, leaf_fmt=None,
             vb = torch.where(ok, hv[:, k], vb)
         t[ridx], face[ridx], fu[ridx], fv[ridx] = tb, fb, ub, vb
 
-    counts = traverse_plain(nodes, origin, direction, t, leaf, LEAF_ROWS, 8)
+    counts = traverse_plain(nodes, origin, direction, t, leaf, LEAF_ROWS, 8,
+                            cull, stack_depth)
     if stats:
         return t, face, fu, fv, counts
     return t, face, fu, fv
@@ -170,49 +194,67 @@ def check_rays(nodes, tris, origin, direction, t_in):
     return dev, n
 
 
-def _wide_trace5_cuda(nodes, tris_g, origin, direction, t_in, leaf_fmt, stats):
-    global launches
+def _wide_trace5_cuda(nodes, tris_g, origin, direction, t_in, leaf_fmt, stats,
+                      variant, anatomy):
+    global launches, launches_simple
     dev, n = check_rays(nodes, tris_g, origin, direction, t_in)
     if leaf_fmt not in LEAF_FMTS:
         raise NotImplementedError(f'leaf format {leaf_fmt!r}')
+    if variant not in VARIANTS:
+        raise ValueError(f'unknown kernel variant {variant!r}')
     t = torch.empty(n, dtype=torch.float32, device=dev)
     face = torch.empty(n, dtype=torch.int32, device=dev)
     fu = torch.empty(n, dtype=torch.float32, device=dev)
     fv = torch.empty(n, dtype=torch.float32, device=dev)
-    counts = torch.empty((3, n) if stats else (0,), dtype=torch.int32,
-                         device=dev)
+    per_ray, warps = stats_buffers(stats or anatomy, 6, n, dev)
     from .build import load
-    err = load().wide_trace5(nodes, tris_g, origin, direction, t_in,
-                             LEAF_FMTS[leaf_fmt], t, face, fu, fv, counts,
-                             torch.cuda.current_stream(dev).cuda_stream)
+    ext = load()
+    kernel = ext.wide_trace5_simple if variant == 'simple' else ext.wide_trace5
+    err = kernel(nodes, tris_g, origin, direction, t_in, LEAF_FMTS[leaf_fmt],
+                 t, face, fu, fv, per_ray, warps,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'wide_trace5 kernel launch failed: cudaError {err}')
-    launches += 1
+    if variant == 'simple':
+        launches_simple += 1
+    else:
+        launches += 1
+    out = (t, face, fu, fv)
     if stats:
-        return t, face, fu, fv, counts
-    return t, face, fu, fv
+        out += (per_ray[:4],)
+    if anatomy:
+        out += (anatomy_record(per_ray, warps, 4),)
+    return out
 
 
 def wide_trace5(nodes, tris_g, origin, direction, t_in, leaf_fmt=None,
-                stats=False):
+                stats=False, variant='tuned', anatomy=False):
     """Trace world rays (origin/direction (3, N), t_in (N,) reach)
     against the flattened world-space BVH8.
 
     Returns (t, face, fu, fv): face is the slot into the attribute side
     table (-1 where nothing closer was hit), (fu, fv) the winning
-    barycentrics. With `stats` also a (3, N) int32 tensor of per-ray
-    interior pops, leaf pops and leaf rows tested; these are each ray's
-    own counts, not the JAX kernel's per-grid-step packet counts.
-    CUDA tensors launch the CUDA kernel (and count one launch in
-    `launches`); CPU tensors run `wide_trace5_plain`.
+    barycentrics. With `stats` also a (4, N) int32 tensor of per-ray
+    interior pops, leaf pops, leaf rows tested and triangles in those
+    rows; these are each ray's own counts, not the JAX kernel's
+    per-grid-step packet counts.
+    CUDA tensors launch a CUDA kernel: csrc/trace_packet.cu (counted in
+    `launches`), or csrc/trace_packet_simple.cu (counted in
+    `launches_simple`) for variant='simple'. `anatomy` appends the
+    dict of `trace_inst.anatomy_record`. CPU tensors run
+    `wide_trace5_plain`, with the pop cull unless variant='simple'.
     """
     leaf_fmt = bvh8.LEAF_FMT if leaf_fmt is None else leaf_fmt
     if origin.device.type == 'cuda':
         return _wide_trace5_cuda(nodes, tris_g, origin, direction, t_in,
-                                 leaf_fmt, stats)
+                                 leaf_fmt, stats, variant, anatomy)
     if origin.device.type == 'cpu':
+        if anatomy:
+            raise ValueError('only the CUDA kernels measure their anatomy')
+        if variant not in VARIANTS:
+            raise ValueError(f'unknown kernel variant {variant!r}')
         return wide_trace5_plain(nodes, tris_g, origin, direction, t_in,
-                                 leaf_fmt, stats)
+                                 leaf_fmt, stats, cull=variant != 'simple')
     raise ValueError(f'wide_trace5: unsupported device {origin.device}')
 
 

@@ -98,7 +98,7 @@ def wide_trace_plain(wide_nodes, wide_tris, origin, direction, t_in,
         normal[ridx], uv[ridx], shape[ridx] = nb, ub, sb
 
     counts = traverse_plain(wide_nodes, origin, direction, t, leaf, LEAF_ROWS,
-                            per_row)
+                            per_row, cull=False)
     out = (t, face, normal.T.contiguous(), uv.T.contiguous(), shape)
     return out + (counts,) if stats else out
 
@@ -111,7 +111,7 @@ def _wide_trace_cuda(wide_nodes, wide_tris, origin, direction, t_in, stats):
     normal = torch.empty((3, n), dtype=torch.float32, device=dev)
     uv = torch.empty((2, n), dtype=torch.float32, device=dev)
     shape = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.empty((3, n) if stats else (0,), dtype=torch.int32,
+    counts = torch.empty((4, n) if stats else (0,), dtype=torch.int32,
                          device=dev)
     from .build import load
     err = load().wide_trace(wide_nodes, wide_tris, origin, direction, t_in,
@@ -129,9 +129,10 @@ def wide_trace(wide_nodes, wide_tris, origin, direction, t_in, stats=False):
     against the flattened world-space BVH8 with in-row attributes.
 
     Returns (t, face, normal, uv, shape) as the module docstring says.
-    With `stats` also a (3, N) int32 tensor of per-ray interior pops,
-    leaf pops and leaf rows tested; these are each ray's own counts, not
-    the JAX kernel's per-grid-step packet counts.
+    With `stats` also a (4, N) int32 tensor of per-ray interior pops,
+    leaf pops, leaf rows tested and triangles in those rows; these are
+    each ray's own counts, not the JAX kernel's per-grid-step packet
+    counts.
     CUDA tensors launch the CUDA kernel (and count one launch in
     `launches`); CPU tensors run `wide_trace_plain`.
     """

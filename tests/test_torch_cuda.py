@@ -5,8 +5,9 @@ scene-model module (and the procedural module) of either package, so the
 JAX package and the port build the same scene from the same numbers;
 `flat_mode` compiles a mesh scene's world-flattened tables.
 
-The tests here launch the hand-written CUDA kernels and compare them
-with their plain PyTorch versions on the card. They carry the `cuda`
+The tests here launch the hand-written CUDA kernels (the ones the render
+paths run and the baseline `simple` ones) and compare them with their
+plain PyTorch versions on the card. They carry the `cuda`
 marker and skip on a machine without one; on the GPU machine run them
 with `python -m pytest tests/test_torch_cuda.py -m cuda`.
 """
@@ -152,7 +153,9 @@ def test_kernel_matches_plain_version(cuda, leaf_fmt, monkeypatch):
     the instanced blob scene. Both traverse each ray in the same order
     with the same float32 operations (the kernel is built without FMA
     contraction), so every output and every per-ray counter is equal to
-    the bit."""
+    the bit. The outputs compared are those of the launch without
+    counters, the kernel instantiation the render path runs; the launch
+    with counters is another instantiation and must give the same."""
     import path_tracer_tpu_torch.scene.bvh8 as bvh8
     import path_tracer_tpu_torch.scene.model as model
     from path_tracer_tpu_torch.ops import trace_inst
@@ -165,15 +168,18 @@ def test_kernel_matches_plain_version(cuda, leaf_fmt, monkeypatch):
     o, d, t_in = _random_rays(rng, 8192, cuda)
     tlas = packed.host_layout.tlas_rows
     before = trace_inst.launches
-    kernel = trace_inst.inst_trace(*tables, o, d, t_in, tlas, stats=True)
+    kernel = trace_inst.inst_trace(*tables, o, d, t_in, tlas)
+    counted = trace_inst.inst_trace(*tables, o, d, t_in, tlas, stats=True)
     torch.cuda.synchronize()
-    assert trace_inst.launches == before + 1
+    assert trace_inst.launches == before + 2
     plain = trace_inst.inst_trace_plain(*tables, o, d, t_in, tlas,
                                         leaf_fmt=leaf_fmt, stats=True)
     assert int((plain[1] >= 0).sum()) > 30
-    for name, k, p in zip(('t', 'face', 'fu', 'fv', 'inst', 'counts'),
-                          kernel, plain):
+    for name, k, c, p in zip(('t', 'face', 'fu', 'fv', 'inst'), kernel,
+                             counted, plain):
         assert torch.equal(k, p), name
+        assert torch.equal(c, p), name + ' (launch with counters)'
+    assert torch.equal(counted[-1], plain[-1]), 'counts'
     assert bool((kernel[4][kernel[1] < 0] == -1).all())
 
 
@@ -193,7 +199,8 @@ def _blob_soup(rng, faces=300):
 def test_wide_trace5_kernel_matches_plain_version(cuda, leaf_fmt, monkeypatch):
     """csrc/trace_packet.cu against wide_trace5_plain, both on the card:
     same per-ray order, same float32 operations, so every output and
-    every per-ray counter is equal to the bit."""
+    every per-ray counter is equal to the bit, for the launch without
+    counters (what the render path runs) and the one with them."""
     import path_tracer_tpu_torch.scene.bvh8 as bvh8
     from path_tracer_tpu_torch.ops import trace_packet
 
@@ -204,14 +211,17 @@ def test_wide_trace5_kernel_matches_plain_version(cuda, leaf_fmt, monkeypatch):
         bvh8.build_wide_bvh(*soup), *soup)[:2])
     o, d, t_in = _random_rays(rng, 8192, cuda)
     before = trace_packet.launches
-    kernel = trace_packet.wide_trace5(nodes, tris, o, d, t_in, stats=True)
+    kernel = trace_packet.wide_trace5(nodes, tris, o, d, t_in)
+    counted = trace_packet.wide_trace5(nodes, tris, o, d, t_in, stats=True)
     torch.cuda.synchronize()
-    assert trace_packet.launches == before + 1
+    assert trace_packet.launches == before + 2
     plain = trace_packet.wide_trace5_plain(nodes, tris, o, d, t_in,
                                            leaf_fmt=leaf_fmt, stats=True)
     assert int((plain[1] >= 0).sum()) > 30
-    for name, k, p in zip(('t', 'face', 'fu', 'fv', 'counts'), kernel, plain):
+    for name, k, c, p in zip(('t', 'face', 'fu', 'fv'), kernel, counted, plain):
         assert torch.equal(k, p), name
+        assert torch.equal(c, p), name + ' (launch with counters)'
+    assert torch.equal(counted[-1], plain[-1]), 'counts'
 
 
 def test_wide_trace_kernel_matches_plain_version(cuda):
@@ -238,6 +248,88 @@ def test_wide_trace_kernel_matches_plain_version(cuda):
     assert bool((kernel[4][kernel[1] < 0] == 0).all())
 
 
+def _redesigned_kernel(kernel, leaf_fmt, rng, cuda):
+    """(kernel wrapper, plain version) of one of the two redesigned
+    kernels on random geometry, both taking (o, d, t_in, **keywords)."""
+    import path_tracer_tpu_torch.scene.bvh8 as bvh8
+    import path_tracer_tpu_torch.scene.model as model
+    from path_tracer_tpu_torch.ops import trace_inst, trace_packet
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+
+    if kernel == 'inst_trace':
+        scene, _ = blob_scene(model)
+        packed = compile_scene(scene, device=cuda)
+        tables = (packed.inst_nodes, packed.inst_tris, packed.inst_rows)
+        tlas = packed.host_layout.tlas_rows
+        return (lambda *a, **k: trace_inst.inst_trace(
+                    *tables, *a, tlas, leaf_fmt=leaf_fmt, **k),
+                lambda *a, **k: trace_inst.inst_trace_plain(
+                    *tables, *a, tlas, leaf_fmt=leaf_fmt, **k))
+    soup = _blob_soup(rng)
+    tables = [torch.from_numpy(x).to(cuda) for x in bvh8.pack_wide_geom(
+        bvh8.build_wide_bvh(*soup), *soup)[:2]]
+    return (lambda *a, **k: trace_packet.wide_trace5(
+                *tables, *a, leaf_fmt=leaf_fmt, **k),
+            lambda *a, **k: trace_packet.wide_trace5_plain(
+                *tables, *a, leaf_fmt=leaf_fmt, **k))
+
+
+@pytest.mark.parametrize('leaf_fmt', ['mt', 'bary', 'woop'])
+@pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5'])
+def test_simple_kernel_matches_plain_version_without_cull(cuda, kernel,
+                                                          leaf_fmt, monkeypatch):
+    """The baseline kernels (variant='simple', csrc/*_simple.cu) against
+    the plain versions without the pop cull: every output and every
+    per-ray counter equal to the bit. Against the redesigned kernel t is
+    equal on these rays and the pops are no fewer."""
+    import path_tracer_tpu_torch.scene.bvh8 as bvh8
+    from path_tracer_tpu_torch.ops import trace_inst, trace_packet
+
+    monkeypatch.setattr(bvh8, 'LEAF_FMT', leaf_fmt)
+    rng = np.random.default_rng(9)
+    run, plain = _redesigned_kernel(kernel, leaf_fmt, rng, cuda)
+    o, d, t_in = _random_rays(rng, 8192, cuda)
+    module = trace_inst if kernel == 'inst_trace' else trace_packet
+    before = (module.launches, module.launches_simple)
+    simple = run(o, d, t_in, stats=True, variant='simple')
+    uncounted = run(o, d, t_in, variant='simple')
+    torch.cuda.synchronize()
+    assert (module.launches, module.launches_simple) == (before[0], before[1] + 2)
+    want = plain(o, d, t_in, stats=True, cull=False)
+    assert int((want[1] >= 0).sum()) > 30
+    for k, p in zip(simple, want):
+        assert torch.equal(k, p)
+    for k, p in zip(uncounted, want):
+        assert torch.equal(k, p)
+    new = run(o, d, t_in, stats=True)
+    assert torch.equal(new[0], simple[0])
+    assert bool((new[-1] <= simple[-1]).all())
+
+
+@pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5'])
+def test_kernel_anatomy(cuda, kernel):
+    """What the kernels measure of themselves is consistent: efficiencies
+    in (0, 1], at least one distinct row a pass, a stack at least one
+    deep, the same results with the counters on, and culled pops only in
+    the kernel that culls."""
+    rng = np.random.default_rng(10)
+    run, _ = _redesigned_kernel(kernel, 'bary', rng, cuda)
+    o, d, t_in = _random_rays(rng, 8192, cuda)
+    for variant in ('tuned', 'simple'):
+        plain_out = run(o, d, t_in, variant=variant)
+        *out, counts, rec = run(o, d, t_in, variant=variant, stats=True,
+                                anatomy=True)
+        for a, b in zip(out, plain_out):
+            assert torch.equal(a, b)
+        for key in ('simt_loop', 'simt_interior', 'simt_leaf'):
+            assert 0.0 < rec[key] <= 1.0, (key, rec[key])
+        assert 1.0 <= rec['interior_rows_per_pass'] <= 32.0
+        assert 1.0 <= rec['leaf_rows_per_pass'] <= 32.0
+        assert 1 <= rec['deepest_stack_max'] <= 128
+        assert rec['passes_interior'] * 32 >= int(counts[0].sum())
+        assert (rec['culled_pops_per_ray'] > 0) == (variant == 'tuned')
+
+
 @pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5', 'wide_trace'])
 def test_kernel_wrapper_rejects_bad_input(cuda, kernel):
     """Each wrapper checks device, dtype and shape before it launches."""
@@ -262,6 +354,13 @@ def test_kernel_wrapper_rejects_bad_input(cuda, kernel):
                 dict(nodes=torch.zeros((128, 16), device=cuda).T)):
         with pytest.raises(ValueError):
             run(**bad)
+    if kernel != 'wide_trace':
+        with pytest.raises(ValueError):
+            if kernel == 'inst_trace':
+                trace_inst.inst_trace(nodes, tris, rows, o, o, t_in, 8,
+                                      variant='fast')
+            else:
+                trace_packet.wide_trace5(nodes, tris, o, o, t_in, variant='fast')
 
 
 @pytest.mark.parametrize('scene_name', ['textured_inst', 'metal_flat'])

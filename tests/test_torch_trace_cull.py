@@ -1,0 +1,212 @@
+"""The pop cull of the plain traversals, their stack depth and counters,
+and the ray sort of the render loop, on the CPU.
+
+The pop cull drops a popped node whose box the ray enters no earlier than
+its current t. A child's box lies inside its parent's, so no closer hit is
+lost and t is equal with and without it on every ray, exactly. The face
+may differ where the BVH build's spatial splits refer to one triangle from
+two leaves and the hit lies outside one of the two leaf boxes: the cull
+then skips that leaf and the other reference wins (face agreement > 0.999
+asserted; it is the same triangle, so fu and fv are equal too).
+"""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+import path_tracer_tpu.scene.bvh8 as jbvh8
+import path_tracer_tpu.scene.compile as jcompile
+import path_tracer_tpu.scene.model as jmodel
+import path_tracer_tpu.scene.procedural as jproc
+import path_tracer_tpu_torch.scene.bvh8 as tbvh8
+import path_tracer_tpu_torch.scene.compile as tcompile
+import path_tracer_tpu_torch.scene.model as tmodel
+import path_tracer_tpu_torch.scene.procedural as tproc
+from path_tracer_tpu.ops.intersect import SceneLayout as JLayout
+from path_tracer_tpu_torch.integrator import wavefront
+from path_tracer_tpu_torch.ops import trace_inst, trace_packet, trace_wide
+
+from test_torch_compile import jax_fields, layout_fields
+from test_torch_cuda import (
+    blob_scene, flat_mode, textured_scene, two_instance_scene)
+
+LEAF_FMTS = ['mt', 'bary', 'woop']
+
+
+@pytest.fixture
+def leaf_fmt(request, monkeypatch):
+    """Set the leaf geometry format in BOTH packages' bvh8."""
+    monkeypatch.setattr(jbvh8, 'LEAF_FMT', request.param)
+    monkeypatch.setattr(tbvh8, 'LEAF_FMT', request.param)
+    return request.param
+
+
+def _compiled(mode, source):
+    """The port's PackedScene of a multi-instance scene in `mode`, from
+    the port's own compile or carried across from the JAX compile."""
+    def scene(m, p):
+        return blob_scene(m)[0] if mode == 'inst' else two_instance_scene(m, p)
+
+    if source == 'port':
+        with flat_mode(tcompile) if mode == 'flat' else contextlib.nullcontext():
+            return tcompile.compile_scene(scene(tmodel, tproc), device='cpu')
+    with flat_mode(jcompile) if mode == 'flat' else contextlib.nullcontext():
+        jp = jcompile.compile_scene(scene(jmodel, jproc))
+    return tcompile.packed_from_numpy(
+        jax_fields(jp), layout_fields(JLayout.from_packed(jp)), device='cpu')
+
+
+def _rays(rng, n, lo, hi):
+    o = rng.uniform(lo, hi, (3, n)).astype(np.float32)
+    d = rng.normal(0, 1, (3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    return torch.from_numpy(o), torch.from_numpy(d)
+
+
+def _plain(mode, packed):
+    """(plain traversal taking rays and keywords, number of pop counters)"""
+    if mode == 'inst':
+        tlas = packed.host_layout.tlas_rows
+        return lambda o, d, t_in, **kw: trace_inst.inst_trace_plain(
+            packed.inst_nodes, packed.inst_tris, packed.inst_rows, o, d, t_in,
+            tlas, stats=True, **kw)
+    return lambda o, d, t_in, **kw: trace_packet.wide_trace5_plain(
+        packed.wide_nodes_g, packed.wide_tris_g, o, d, t_in, stats=True, **kw)
+
+
+@pytest.mark.parametrize('mode', ['inst', 'flat'])
+@pytest.mark.parametrize('leaf_fmt', LEAF_FMTS, indirect=True)
+def test_pop_cull_keeps_every_hit(leaf_fmt, mode):
+    """The plain traversal with the pop cull against the one without, on
+    a scene of several mesh instances: t equal exactly on every ray, the
+    same hit mask, face agreement > 0.999 with equal fu/fv there, and no
+    ray pops more with the cull than without."""
+    packed = _compiled(mode, 'port')
+    plain = _plain(mode, packed)
+    rng = np.random.default_rng(11)
+    n = 1536
+    o, d = _rays(rng, n, -6, 6) if mode == 'inst' else _rays(rng, n, -3, 3)
+    t_in = torch.full((n,), 1e6)
+    *with_cull, counts_cull = plain(o, d, t_in, cull=True)
+    *without, counts_all = plain(o, d, t_in, cull=False)
+    assert int((without[1] >= 0).sum()) > 30
+    assert torch.equal(with_cull[0], without[0])
+    assert torch.equal(with_cull[1] >= 0, without[1] >= 0)
+    same = with_cull[1] == without[1]
+    assert same.float().mean() > 0.999, same.float().mean()
+    for a, b in zip(with_cull[2:], without[2:]):
+        assert torch.equal(a[same], b[same])
+    assert bool((counts_cull <= counts_all).all())
+    assert int(counts_cull.sum()) < int(counts_all.sum())
+
+
+@pytest.mark.parametrize('source', ['port', 'jax'])
+@pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5', 'wide_trace'])
+@pytest.mark.parametrize('leaf_fmt', ['bary'], indirect=True)
+def test_plain_counters_count_the_leaf_triangles(leaf_fmt, kernel, source):
+    """The last per-ray counter of the plain versions is the number of
+    triangles in the leaf rows the ray tested: every leaf the ray popped
+    adds its count. A leaf's rows are full but for the last, which is not empty;
+    the pop cull never raises the count. Tables of the port's compile and of the JAX
+    compile give the same counts."""
+    mode = 'inst' if kernel == 'inst_trace' else 'flat'
+    packed = _compiled(mode, source)
+    rng = np.random.default_rng(14)
+    n = 768
+    o, d = _rays(rng, n, -6, 6) if mode == 'inst' else _rays(rng, n, -3, 3)
+    t_in = torch.full((n,), 1e6)
+    if kernel == 'wide_trace':
+        slots = tbvh8.TRIS_PER_ROW
+        counts = trace_wide.wide_trace_plain(
+            packed.wide_nodes, packed.wide_tris, o, d, t_in, stats=True)[-1]
+        assert counts.shape == (4, n)
+    else:
+        slots = 8
+        plain = _plain(mode, packed)
+        counts = plain(o, d, t_in)[-1]
+        assert counts.shape == ((5, n) if mode == 'inst' else (4, n))
+        assert bool((counts[-1] <= plain(o, d, t_in, cull=False)[-1][-1]).all())
+    leaf_pops, rows, triangles = counts[1], counts[2], counts[-1]
+    assert int(triangles.sum()) > 100
+    # A leaf's rows are full but for its last one, which holds a triangle.
+    assert bool((triangles >= slots * (rows - leaf_pops) + leaf_pops).all())
+    assert bool((triangles <= slots * rows).all())
+    want = _compiled(mode, 'port' if source == 'jax' else 'jax')
+    if kernel == 'wide_trace':
+        other = trace_wide.wide_trace_plain(
+            want.wide_nodes, want.wide_tris, o, d, t_in, stats=True)[-1]
+    else:
+        other = _plain(mode, want)(o, d, t_in)[-1]
+    assert torch.equal(counts, other)
+
+
+@pytest.mark.parametrize('cull', [True, False])
+@pytest.mark.parametrize('mode', ['inst', 'flat'])
+def test_shallow_stack_drops_pushes(mode, cull):
+    """Pushes past the stack's depth are dropped: with a depth of 3 the
+    traversal still ends, finds no hit that the full depth does not beat
+    or equal, and loses some; with the depth the rays need (16 here) it
+    equals the default depth."""
+    packed = _compiled(mode, 'port')
+    plain = _plain(mode, packed)
+    rng = np.random.default_rng(12)
+    n = 1024
+    o, d = _rays(rng, n, -6, 6) if mode == 'inst' else _rays(rng, n, -3, 3)
+    t_in = torch.full((n,), 1e6)
+    full = plain(o, d, t_in, cull=cull)
+    enough = plain(o, d, t_in, cull=cull, stack_depth=16)
+    for a, b in zip(full, enough):
+        assert torch.equal(a, b)
+    shallow = plain(o, d, t_in, cull=cull, stack_depth=3)
+    assert bool((shallow[0] >= full[0]).all())
+    lost = shallow[0] > full[0]
+    assert 0 < int(lost.sum()) < n
+    kept = (shallow[1] >= 0) & ~lost
+    assert int(kept.sum()) > 30
+    assert torch.equal(shallow[1][kept], full[1][kept])
+
+
+def test_simple_variant_is_the_plain_version_without_cull():
+    """On CPU tensors variant='simple' runs the plain version without the
+    pop cull (what the simple kernels compute), the default with it; an
+    unknown variant and an anatomy request raise."""
+    packed = _compiled('inst', 'port')
+    tables = (packed.inst_nodes, packed.inst_tris, packed.inst_rows)
+    tlas = packed.host_layout.tlas_rows
+    o, d = _rays(np.random.default_rng(13), 512, -6, 6)
+    t_in = torch.full((512,), 1e6)
+    for variant, cull in (('tuned', True), ('simple', False)):
+        got = trace_inst.inst_trace(*tables, o, d, t_in, tlas, stats=True,
+                                    variant=variant)
+        want = trace_inst.inst_trace_plain(*tables, o, d, t_in, tlas,
+                                           stats=True, cull=cull)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        trace_inst.inst_trace(*tables, o, d, t_in, tlas, variant='fast')
+    with pytest.raises(ValueError):
+        trace_inst.inst_trace(*tables, o, d, t_in, tlas, anatomy=True)
+    with pytest.raises(ValueError):
+        trace_packet.wide_trace5(packed.wide_nodes_g, packed.wide_tris_g, o, d,
+                                 t_in, variant='fast')
+
+
+@pytest.mark.parametrize('mode', ['inst', 'flat'])
+def test_render_is_the_same_with_and_without_ray_sort(mode):
+    """RenderConfig.sort_rays changes which rays are neighbours in the
+    kernel's input, not what any ray hits: after 3 rounds at 32x16 the
+    accumulators are identical."""
+    accums = []
+    for sort_rays in (True, False):
+        with flat_mode(tcompile) if mode == 'flat' else contextlib.nullcontext():
+            packed = tcompile.compile_scene(textured_scene(tmodel, tproc),
+                                            device='cpu')
+        config = wavefront.RenderConfig(width=32, height=16, sort_rays=sort_rays)
+        assert wavefront.wants_sort(config, packed.host_layout) == sort_rays
+        state = wavefront.render(packed, config, 3, seed=4)
+        accums.append(state['accum'])
+    assert float(accums[0]['count'].sum()) > 0
+    assert torch.equal(accums[0]['xyz'], accums[1]['xyz'])
+    assert torch.equal(accums[0]['count'], accums[1]['count'])
