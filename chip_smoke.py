@@ -20,15 +20,17 @@ hand-written kernels against their plain PyTorch versions:
      format, bit for bit (kernel and plain version take the same per-ray
      traversal order): a 65,536-ray subset of every set, and all rays of
      the bounce set in the default format. What is compared and timed is
-     the launch the render paths make; the launch with the per-ray
-     counters, another instantiation, must give the same. The baseline
-     kernels (variant='simple') likewise against the plain versions
-     without the pop cull; kernel time warm and cold in sorted and in lane
-     order (CUDA events, median of 7; cold = a buffer larger than L2
-     written before each launch), plain time, and the kernel's bound from
-     its counted pops and triangles; `kernel_anatomy`: what each kernel
-     measured of itself (SIMT efficiency of each loop body, distinct rows
-     a warp fetches in a pass, deepest stack, culled pops); `kernel_ab`:
+     the launch the render paths make (for wide_trace, the launch of the
+     direct call); the launch with the per-ray counters, another
+     instantiation, must give the same. The baseline kernels
+     (variant='simple') likewise against the plain versions without the
+     pop cull, and the pop cull's effect (`pop_cull`); kernel time warm
+     and cold in sorted and in lane order (CUDA events, median of 7; cold
+     = a buffer larger than L2 written before each launch), plain time,
+     and the kernel's bound from its counted pops and triangles;
+     `kernel_anatomy`: what each kernel measured of itself (SIMT
+     efficiency of each loop body, distinct rows a warp fetches in a pass,
+     deepest stack, culled pops); `kernel_ab`:
      the kernel and its baseline in turns, on rays in sorted and in lane
      order;
   5. the three kernels against one another on the bounce rays (hit masks
@@ -326,7 +328,8 @@ def main():
                     wide_trace5=trace_packet.launches,
                     wide_trace=trace_wide.launches,
                     inst_trace_simple=trace_inst.launches_simple,
-                    wide_trace5_simple=trace_packet.launches_simple)
+                    wide_trace5_simple=trace_packet.launches_simple,
+                    wide_trace_simple=trace_wide.launches_simple)
 
     dev = torch.device(DEVICE)
     card = card_line()
@@ -400,9 +403,9 @@ def main():
 
     # The table sets of the three kernels: (kernel name, leaf format, the
     # tables the kernel reads, result rows written, operations a triangle,
-    # kernel, plain version). The two redesigned kernels take
-    # variant='simple' (the baseline kernel) and their plain versions
-    # cull=False (what the baseline computes).
+    # kernel, plain version). Each kernel takes variant='simple' (its
+    # baseline kernel) and each plain version cull=False (what the baseline
+    # computes).
     def variants(fmt):
         pk, lay = packs[fmt]
         fl = flats[fmt][0]
@@ -462,27 +465,25 @@ def main():
                 rec = records.setdefault(name, dict(max_abs_err=0.0,
                                                     agreement=1.0))
                 main_fmt = fmt == bvh8.LEAF_FMT
-                redesigned = name != 'wide_trace'
-                if redesigned:
-                    # The baseline kernel: no pop cull, so held to the plain
-                    # version without it.
-                    simple_out = kernel(*rays, variant='simple')
-                    torch.cuda.synchronize()
-                    s_err, s_agree = compare(
-                        name + '_simple', label,
-                        [x[..., subset] for x in simple_out],
-                        plain(*sub_rays, cull=False))
-                    err, agree = max(err, s_err), min(agree, s_agree)
-                    if main_fmt:
-                        t_other = int((simple_out[0] != out[0]).sum())
-                        face_other = int((simple_out[1] != out[1]).sum())
-                        log('pop_cull', kernel=name, set=set_name, rays=n_rays,
-                            t_differs=t_other, face_differs=face_other)
-                        if t_other > 20 or face_other > 200:
-                            raise RuntimeError(
-                                f'the pop cull of {name} changes {t_other} '
-                                f'distances and {face_other} faces')
-                    del simple_out
+                # The baseline kernel: no pop cull, so held to the plain
+                # version without it.
+                simple_out = kernel(*rays, variant='simple')
+                torch.cuda.synchronize()
+                s_err, s_agree = compare(
+                    name + '_simple', label,
+                    [x[..., subset] for x in simple_out],
+                    plain(*sub_rays, cull=False))
+                err, agree = max(err, s_err), min(agree, s_agree)
+                if main_fmt:
+                    t_other = int((simple_out[0] != out[0]).sum())
+                    face_other = int((simple_out[1] != out[1]).sum())
+                    log('pop_cull', kernel=name, set=set_name, rays=n_rays,
+                        t_differs=t_other, face_differs=face_other)
+                    if t_other > 20 or face_other > 200:
+                        raise RuntimeError(
+                            f'the pop cull of {name} changes {t_other} '
+                            f'distances and {face_other} faces')
+                del simple_out
                 # Times: every format on the sorted rays; the scene's own
                 # format in both orders, warm and cold, and the baseline
                 # kernel beside it.
@@ -490,8 +491,8 @@ def main():
                 ms = {k: cuda_ms(lambda: kernel(*r)) for k, r in timed.items()}
                 ms_cold = {k: cuda_ms(lambda: kernel(*r), flush=flush)
                            for k, r in timed.items()}
-                simple_ms = ({k: cuda_ms(lambda: kernel(*r, variant='simple'))
-                              for k, r in timed.items()} if redesigned else None)
+                simple_ms = {k: cuda_ms(lambda: kernel(*r, variant='simple'))
+                             for k, r in timed.items()}
                 n_hit = int((out[1] >= 0).sum())
                 bound_ms, bound_by, bound_bytes, ops = kernel_bound(
                     counts, n_rays, nbytes(*tables), out_words, ops_tri,
@@ -510,7 +511,7 @@ def main():
                     hit_fraction=n_hit / n_rays)
                 rec['max_abs_err'] = max(rec['max_abs_err'], err)
                 rec['agreement'] = min(rec['agreement'], agree)
-                if main_fmt and redesigned:
+                if main_fmt:
                     # What each kernel measures of itself, and the two
                     # kernels in turns on sorted and unsorted rays.
                     for variant in ('tuned', 'simple'):
@@ -535,7 +536,7 @@ def main():
                     err, agree = compare(name, label + '/all', out, plain_full)
                     rec.update(ms=ms[path_order], ms_cold=ms_cold[path_order],
                                ms_sorted=ms['sorted'], ms_lane=ms['lane'],
-                               simple_ms=simple_ms and simple_ms[path_order],
+                               simple_ms=simple_ms[path_order],
                                plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by,
                                max_abs_err=max(rec['max_abs_err'], err),

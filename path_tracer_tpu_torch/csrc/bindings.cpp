@@ -34,7 +34,12 @@ extern "C" int wide_trace_launch(const float* nodes, const float* tris,
                                  const float* t_in, long long n, float* t_out,
                                  int* face_out, float* normal_out,
                                  float* uv_out, int* shape_out, int* stats,
-                                 void* stream);
+                                 int* warp_stats, void* stream);
+extern "C" int wide_trace_simple_launch(
+    const float* nodes, const float* tris, const float* origin,
+    const float* direction, const float* t_in, long long n, float* t_out,
+    int* face_out, float* normal_out, float* uv_out, int* shape_out,
+    int* stats, int* warp_stats, void* stream);
 
 namespace {
 
@@ -117,18 +122,38 @@ int wide_trace5_simple(const torch::Tensor& nodes, const torch::Tensor& tris,
       reinterpret_cast<void*>(stream));
 }
 
-// Queues csrc/trace_wide.cu; normal is (3, N), uv (2, N).
+// Queues csrc/trace_wide.cu; normal is (3, N), uv (2, N); counters as
+// inst_trace.
 int wide_trace(const torch::Tensor& nodes, const torch::Tensor& tris,
                const torch::Tensor& origin, const torch::Tensor& direction,
                const torch::Tensor& t_in, torch::Tensor& t,
                torch::Tensor& face, torch::Tensor& normal, torch::Tensor& uv,
-               torch::Tensor& shape, torch::Tensor& stats, int64_t stream) {
+               torch::Tensor& shape, torch::Tensor& stats,
+               torch::Tensor& warp_stats, int64_t stream) {
   return wide_trace_launch(
       nodes.data_ptr<float>(), tris.data_ptr<float>(),
       origin.data_ptr<float>(), direction.data_ptr<float>(),
       t_in.data_ptr<float>(), t_in.numel(), t.data_ptr<float>(),
       face.data_ptr<int>(), normal.data_ptr<float>(), uv.data_ptr<float>(),
-      shape.data_ptr<int>(), stats_ptr(stats),
+      shape.data_ptr<int>(), stats_ptr(stats), stats_ptr(warp_stats),
+      reinterpret_cast<void*>(stream));
+}
+
+// Queues csrc/trace_wide_simple.cu; arguments as wide_trace.
+int wide_trace_simple(const torch::Tensor& nodes, const torch::Tensor& tris,
+                      const torch::Tensor& origin,
+                      const torch::Tensor& direction,
+                      const torch::Tensor& t_in, torch::Tensor& t,
+                      torch::Tensor& face, torch::Tensor& normal,
+                      torch::Tensor& uv, torch::Tensor& shape,
+                      torch::Tensor& stats, torch::Tensor& warp_stats,
+                      int64_t stream) {
+  return wide_trace_simple_launch(
+      nodes.data_ptr<float>(), tris.data_ptr<float>(),
+      origin.data_ptr<float>(), direction.data_ptr<float>(),
+      t_in.data_ptr<float>(), t_in.numel(), t.data_ptr<float>(),
+      face.data_ptr<int>(), normal.data_ptr<float>(), uv.data_ptr<float>(),
+      shape.data_ptr<int>(), stats_ptr(stats), stats_ptr(warp_stats),
       reinterpret_cast<void*>(stream));
 }
 
@@ -145,4 +170,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "The baseline flat traversal (csrc/trace_packet_simple.cu)");
   m.def("wide_trace", &wide_trace,
         "Flat BVH8 traversal, attributes in the leaves (csrc/trace_wide.cu)");
+  m.def("wide_trace_simple", &wide_trace_simple,
+        "The baseline flat traversal with attributes "
+        "(csrc/trace_wide_simple.cu)");
 }

@@ -23,8 +23,8 @@ in PyTorch. There is no fallback from one to the other.
 A stack entry carries the distance at which the ray enters the node's
 box, and a pop whose entry is no longer before the ray's t is dropped
 without fetching its row (the pop cull). Kernel and plain version cull
-alike; the simple kernel and `wide_trace` do not cull, and equal their
-plain versions with cull=False.
+alike (so do `wide_trace` and its plain version); the simple kernel does
+not cull, and equals the plain version with cull=False.
 
 Where the JAX kernel flips a node's push order by the sign of a 1024-ray
 packet's summed direction along the node's axis, kernel and plain

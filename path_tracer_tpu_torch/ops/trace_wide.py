@@ -17,9 +17,13 @@ face = (tri_row + r) * 4 + k; on a miss face is -1 and normal, uv and
 shape are 0 (shape is NOT -1: callers mask by face >= 0).
 
 On a CUDA tensor `wide_trace` launches the hand-written kernel
-csrc/trace_wide.cu; on a CPU tensor it runs `wide_trace_plain`. There is
-no fallback from one to the other. Push order and per-ray counters are
-those of ops/trace_packet.py.
+csrc/trace_wide.cu, or, for variant='simple', the port's first kernel for
+this function, csrc/trace_wide_simple.cu, kept as the baseline to measure
+against; on a CPU tensor it runs `wide_trace_plain`. There is no fallback
+from one to the other. Push order, the pop cull and the per-ray counters
+are those of ops/trace_packet.py: kernel and plain version cull alike,
+the simple kernel does not, and equals the plain version with
+cull=False.
 """
 
 from __future__ import annotations
@@ -27,24 +31,31 @@ from __future__ import annotations
 import torch
 
 from ..scene import bvh8
-from .trace_packet import check_rays, traverse_plain
+from .trace_inst import VARIANTS, anatomy_record, stats_buffers
+from .trace_packet import STACK_DEPTH, check_rays, traverse_plain
 
 LEAF_ROWS = bvh8.LEAF_MAX // bvh8.TRIS_PER_ROW
 
-# Kernel launches made through wide_trace (CUDA tensors only).
+# Kernel launches made through wide_trace (CUDA tensors only): of the
+# redesigned kernel, and of the baseline kernel.
 launches = 0
+launches_simple = 0
 
 
 def reset_launches():
-    global launches
+    global launches, launches_simple
     launches = 0
+    launches_simple = 0
 
 
 def wide_trace_plain(wide_nodes, wide_tris, origin, direction, t_in,
-                     stats=False):
+                     stats=False, cull=True, stack_depth=STACK_DEPTH):
     """The kernel's traversal in plain PyTorch (`traverse_plain` with the
     4-triangle attribute rows), with the kernel's arithmetic in the
-    kernel's order. Arguments and results as `wide_trace`."""
+    kernel's order: the leaf's slots one after another, a slot taken only
+    where its ft is below the t the slots before it left. Arguments and
+    results as `wide_trace`; `cull` and `stack_depth` as
+    `trace_packet.traverse_plain`."""
     dev = origin.device
     n = origin.shape[1]
     t = t_in.clone()
@@ -98,33 +109,45 @@ def wide_trace_plain(wide_nodes, wide_tris, origin, direction, t_in,
         normal[ridx], uv[ridx], shape[ridx] = nb, ub, sb
 
     counts = traverse_plain(wide_nodes, origin, direction, t, leaf, LEAF_ROWS,
-                            per_row, cull=False)
+                            per_row, cull, stack_depth)
     out = (t, face, normal.T.contiguous(), uv.T.contiguous(), shape)
     return out + (counts,) if stats else out
 
 
-def _wide_trace_cuda(wide_nodes, wide_tris, origin, direction, t_in, stats):
-    global launches
+def _wide_trace_cuda(wide_nodes, wide_tris, origin, direction, t_in, stats,
+                     variant, anatomy):
+    global launches, launches_simple
     dev, n = check_rays(wide_nodes, wide_tris, origin, direction, t_in)
+    if variant not in VARIANTS:
+        raise ValueError(f'unknown kernel variant {variant!r}')
     t = torch.empty(n, dtype=torch.float32, device=dev)
     face = torch.empty(n, dtype=torch.int32, device=dev)
     normal = torch.empty((3, n), dtype=torch.float32, device=dev)
     uv = torch.empty((2, n), dtype=torch.float32, device=dev)
     shape = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.empty((4, n) if stats else (0,), dtype=torch.int32,
-                         device=dev)
+    per_ray, warps = stats_buffers(stats or anatomy, 6, n, dev)
     from .build import load
-    err = load().wide_trace(wide_nodes, wide_tris, origin, direction, t_in,
-                            t, face, normal, uv, shape, counts,
-                            torch.cuda.current_stream(dev).cuda_stream)
+    ext = load()
+    kernel = ext.wide_trace_simple if variant == 'simple' else ext.wide_trace
+    err = kernel(wide_nodes, wide_tris, origin, direction, t_in, t, face,
+                 normal, uv, shape, per_ray, warps,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'wide_trace kernel launch failed: cudaError {err}')
-    launches += 1
+    if variant == 'simple':
+        launches_simple += 1
+    else:
+        launches += 1
     out = (t, face, normal, uv, shape)
-    return out + (counts,) if stats else out
+    if stats:
+        out += (per_ray[:4],)
+    if anatomy:
+        out += (anatomy_record(per_ray, warps, 4),)
+    return out
 
 
-def wide_trace(wide_nodes, wide_tris, origin, direction, t_in, stats=False):
+def wide_trace(wide_nodes, wide_tris, origin, direction, t_in, stats=False,
+               variant='tuned', anatomy=False):
     """Trace world rays (origin/direction (3, N), t_in (N,) reach)
     against the flattened world-space BVH8 with in-row attributes.
 
@@ -133,13 +156,20 @@ def wide_trace(wide_nodes, wide_tris, origin, direction, t_in, stats=False):
     leaf pops, leaf rows tested and triangles in those rows; these are
     each ray's own counts, not the JAX kernel's per-grid-step packet
     counts.
-    CUDA tensors launch the CUDA kernel (and count one launch in
-    `launches`); CPU tensors run `wide_trace_plain`.
+    CUDA tensors launch a CUDA kernel: csrc/trace_wide.cu (counted in
+    `launches`), or csrc/trace_wide_simple.cu (counted in
+    `launches_simple`) for variant='simple'. `anatomy` appends the dict
+    of `trace_inst.anatomy_record`. CPU tensors run `wide_trace_plain`,
+    with the pop cull unless variant='simple'.
     """
     if origin.device.type == 'cuda':
         return _wide_trace_cuda(wide_nodes, wide_tris, origin, direction,
-                                t_in, stats)
+                                t_in, stats, variant, anatomy)
     if origin.device.type == 'cpu':
+        if anatomy:
+            raise ValueError('only the CUDA kernels measure their anatomy')
+        if variant not in VARIANTS:
+            raise ValueError(f'unknown kernel variant {variant!r}')
         return wide_trace_plain(wide_nodes, wide_tris, origin, direction,
-                                t_in, stats)
+                                t_in, stats, cull=variant != 'simple')
     raise ValueError(f'wide_trace: unsupported device {origin.device}')

@@ -5,10 +5,11 @@
 The tool behind the A/B numbers of PERF.md. It compiles the textured
 viking hall for 1920x1080 in 'inst' and in 'flat' mode, takes the primary
 rays and the rays after two rounds, each in ray_sort_key order and in lane
-order, and times every variant of `inst_trace` and `wide_trace5` on each
-of the four ray sets in turns (v1 v2 .. vn, then vn .. v1, and so on: two
-runs on two cards, or minutes apart on one, differ by more than most
-changes, so variants are compared only within one call). Each launch is
+order, and times every variant of the spec's kernels (`inst_trace` and
+`wide_trace5`, or `wide_trace`) on each of the four ray sets in turns (v1
+v2 .. vn, then vn .. v1, and so on: two runs on two cards, or minutes apart
+on one, differ by more than most changes, so variants are compared only
+within one call). Each launch is
 timed alone with CUDA events, warm (launches back to back, the tables in
 L2) and cold (a buffer larger than L2 written before each launch). Every
 variant's (t, face) is held against the first variant's, and the anatomy
@@ -17,14 +18,19 @@ counters of csrc/traverse.cuh are read once per variant and ray set.
 A variant is a copy of path_tracer_tpu_torch/csrc/ with textual edits,
 built and loaded as the committed sources are (ops/build.py::load, under
 the variant's name, in build/lab/), the variants building side by side. A
-variant is a dict: `name`; `family` 'new' (csrc/trace_inst.cu and
-trace_packet.cu, the default) or 'simple' (the *_simple.cu baselines);
-`set` {file: {NAME: value}} rewrites `constexpr T NAME = ...;` lines; `sub`
-is a list of [file, regular expression, replacement], each of which must
-match. --spec names one of the specs below:
-`step0` (the default), the ablations of the simple kernels that say what
-binds them, or `design`, the kernels without each of their design
-decisions in turn.
+variant is a dict: `name`; `family` 'new' (csrc/trace_inst.cu,
+trace_packet.cu and trace_wide.cu, the default) or 'simple' (the
+*_simple.cu baselines); `set` {file: {NAME: value}} rewrites `constexpr T
+NAME = ...;` lines; `sub` is a list of [file, regular expression,
+replacement], each of which must match. --spec names one of the specs
+below: for `inst_trace` and `wide_trace5`, `step0` (the default), the
+ablations of the simple kernels that say what binds them, or `design`,
+the kernels without each of their design decisions in turn; for
+`wide_trace`, `v3step0`, the same ablations of its simple kernel (the
+edits apply to every simple kernel; the spec times only this one), or
+`v3design`, each design step of csrc/trace_wide.cu against the kernel
+without it, the sweep of its blocks an SM and the leaf test spread over
+the warp against the one a lane runs alone.
 """
 
 from __future__ import annotations
@@ -44,8 +50,11 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(_HERE))
 
-_SIMPLE = ('trace_inst_simple.cu', 'trace_packet_simple.cu')
-_KERNELS = ('trace_inst.cu', 'trace_packet.cu')
+_SIMPLE = ('trace_inst_simple.cu', 'trace_packet_simple.cu',
+           'trace_wide_simple.cu')
+_KERNELS = ('trace_inst.cu', 'trace_packet.cu', 'trace_wide.cu')
+_ORDER = ('inst_trace', 'wide_trace5', 'wide_trace')  # as in the two above
+_V3 = 'trace_wide.cu'
 
 
 # The table rows read with ld.global.ca instead of ld.global.nc.
@@ -63,22 +72,42 @@ def _design(name, **consts):
     return dict(name=name, set={f: dict(consts) for f in _KERNELS})
 
 
+def _v3(name, *subs, **consts):
+    """A variant of csrc/trace_wide.cu alone: constants and substitutions."""
+    return dict(name=name, set={_V3: consts},
+                sub=[[_V3, *s] for s in subs])
+
+
+# Steps of the v3 design, each undone in the kernel whose leaf test a lane
+# runs alone: every slot of a leaf row tested, the leaf tested inside the
+# loop that pops, the attributes lerped each time a slot wins.
+_ALL_SLOTS = [r'k < filled;', 'k < TRIS_PER_ROW;']
+_ONE_LOOP = [r'pending = v;\s*break;', 'test_leaf(v);']
+_LERP_EACH_WIN = [
+    [r'fv = hv;', 'fv = hv; lerp_attributes(tris, face, fu, fv, nx, ny, nz, '
+                  'tu, tv, shape);'],
+    [r'if \(face >= 0\) lerp_attributes\(', 'if (false) lerp_attributes(']]
+
+
+# The ablations of step 0: what binds the simple kernels.
+_STEP0 = [
+    dict(name='simple', family='simple'),
+    _simple('simple_lb8', [r'__launch_bounds__\(128\)',
+                           '__launch_bounds__(128, 8)']),
+    _simple('simple_block64',
+            [r'__launch_bounds__\(128\)', '__launch_bounds__(64)'],
+            [r'const int block = 128;', 'const int block = 64;']),
+    _simple('simple_block256',
+            [r'__launch_bounds__\(128\)', '__launch_bounds__(256)'],
+            [r'const int block = 128;', 'const int block = 256;']),
+    _simple('simple_noleaf', [r'\+\+n_leaf;', '++n_leaf; continue;']),
+    dict(name='simple_ldca', family='simple', sub=[_LDCA]),
+    dict(name='new'),
+]
+
 SPECS = dict(
-    step0=dict(reps=9, variants=[
-        dict(name='simple', family='simple'),
-        _simple('simple_lb8', [r'__launch_bounds__\(128\)',
-                               '__launch_bounds__(128, 8)']),
-        _simple('simple_block64',
-                [r'__launch_bounds__\(128\)', '__launch_bounds__(64)'],
-                [r'const int block = 128;', 'const int block = 64;']),
-        _simple('simple_block256',
-                [r'__launch_bounds__\(128\)', '__launch_bounds__(256)'],
-                [r'const int block = 128;', 'const int block = 256;']),
-        _simple('simple_noleaf', [r'\+\+n_leaf;', '++n_leaf; continue;']),
-        dict(name='simple_ldca', family='simple', sub=[_LDCA]),
-        dict(name='new'),
-    ]),
-    design=dict(reps=11, variants=[
+    step0=dict(reps=9, kernels=('inst_trace', 'wide_trace5'), variants=_STEP0),
+    design=dict(reps=11, kernels=('inst_trace', 'wide_trace5'), variants=[
         dict(name='simple', family='simple'),
         dict(name='new'),
         _design('no_cull', CULL_POPS='false'),
@@ -91,6 +120,28 @@ SPECS = dict(
         dict(name='block_64', set={'trace_inst.cu': dict(BLOCK=64, MIN_BLOCKS=14),
                                    'trace_packet.cu': dict(BLOCK=64, MIN_BLOCKS=18)}),
         dict(name='ldca', sub=[_LDCA]),
+    ]),
+    v3step0=dict(reps=9, kernels=('wide_trace',), variants=_STEP0),
+    v3design=dict(reps=11, kernels=('wide_trace',), variants=[
+        dict(name='simple', family='simple'),
+        dict(name='new'),
+        _v3('new_twin'),            # the same source: the spread in one call
+        _v3('lane_leaf_min7', WARP_LEAF='false', MIN_BLOCKS=7),
+        _v3('lane_leaf_min8', WARP_LEAF='false', MIN_BLOCKS=8),
+        _v3('lane_leaf_min9', WARP_LEAF='false', MIN_BLOCKS=9),
+        _v3('lane_leaf_min10', WARP_LEAF='false', MIN_BLOCKS=10),
+        _v3('lane_leaf_all_slots', _ALL_SLOTS, WARP_LEAF='false'),
+        _v3('lane_leaf_no_cull', WARP_LEAF='false', CULL_POPS='false'),
+        _v3('lane_leaf_one_loop', _ONE_LOOP, WARP_LEAF='false'),
+        _v3('lane_leaf_lerp_each_win', *_LERP_EACH_WIN, WARP_LEAF='false'),
+        _v3('warp_leaf_min6', WARP_PASS_COST=0, MIN_BLOCKS=6),
+        _v3('warp_leaf_min7', WARP_PASS_COST=0, MIN_BLOCKS=7),
+        _v3('warp_leaf_min8', WARP_PASS_COST=0, MIN_BLOCKS=8),
+        _v3('warp_leaf_min9', WARP_PASS_COST=0, MIN_BLOCKS=9),
+        _v3('warp_leaf_cost2', WARP_PASS_COST=2, MIN_BLOCKS=8),
+        _v3('warp_leaf_cost3', WARP_PASS_COST=3, MIN_BLOCKS=8),
+        _v3('warp_leaf_cost2_min9', WARP_PASS_COST=2, MIN_BLOCKS=9),
+        _v3('warp_leaf_cost4_min9', WARP_PASS_COST=4, MIN_BLOCKS=9),
     ]),
 )
 
@@ -121,9 +172,10 @@ def prepare_sources(variant, out_dir):
         open(path, 'w').write(text)
 
 
-def build_variants(variants, root, workers=4):
+def build_variants(variants, root, kernels, workers=4):
     """({variant name: extension module}, the `ptxas` records of each
-    variant's two kernels), the variants built side by side."""
+    variant's sources of the timed `kernels`), the variants built side by
+    side."""
     from chip_smoke import read_ptxas, start_ptxas
     from path_tracer_tpu_torch.ops import build
 
@@ -131,9 +183,10 @@ def build_variants(variants, root, workers=4):
         name = variant['name']
         src = os.path.join(root, name, 'src')
         prepare_sources(variant, src)
+        files = _SIMPLE if variant.get('family') == 'simple' else _KERNELS
         ptxas = start_ptxas(
             src, build.NVCC_FLAGS, os.path.join(root, name, 'ptxas'),
-            names=_SIMPLE if variant.get('family') == 'simple' else _KERNELS)
+            names=[files[_ORDER.index(k)] for k in kernels])
         ext = build.load(csrc=src, name=f'{build.NAME}_lab_{name}',
                          build_dir=os.path.join(root, name, 'obj'))
         return name, ext, read_ptxas(ptxas, fail_on_spill=False, variant=name)
@@ -174,7 +227,8 @@ def main(argv=None):
     log('lab_card', nvidia_smi=card, torch=torch.__version__)
     t0 = time.perf_counter()
     exts, records = build_variants(
-        variants, os.path.join(os.path.dirname(build.BUILD_DIR), 'lab'))
+        variants, os.path.join(os.path.dirname(build.BUILD_DIR), 'lab'),
+        spec['kernels'])
     build.load()        # the committed kernels, for the rays after two rounds
     records.append(dict(phase='lab_build', seconds=time.perf_counter() - t0,
                         variants=[v['name'] for v in variants]))
@@ -211,7 +265,15 @@ def main(argv=None):
 
     tables = {'inst_trace': (packed.inst_nodes, packed.inst_tris,
                              packed.inst_rows),
-              'wide_trace5': (flat.wide_nodes_g, flat.wide_tris_g)}
+              'wide_trace5': (flat.wide_nodes_g, flat.wide_tris_g),
+              'wide_trace': (flat.wide_nodes, flat.wide_tris)}
+    f32, i32 = torch.float32, torch.int32
+    # (shape, dtype) of each kernel's outputs, and its per-ray pop counters.
+    results = {'inst_trace': ([(n, f32), (n, i32), (n, f32), (n, f32),
+                               (n, i32)], 5),
+               'wide_trace5': ([(n, f32), (n, i32), (n, f32), (n, f32)], 4),
+               'wide_trace': ([(n, f32), (n, i32), ((3, n), f32),
+                               ((2, n), f32), (n, i32)], 4)}
     fmt = trace_inst.LEAF_FMTS['bary']
     stream = torch.cuda.current_stream(dev).cuda_stream
     flush_buffer = torch.empty(96 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -223,18 +285,18 @@ def main(argv=None):
         if kernel == 'inst_trace':
             err = fn(*tables[kernel], *rays, layout.tlas_rows, fmt, *outs,
                      per_ray, warps, stream)
-        else:
+        elif kernel == 'wide_trace5':
             err = fn(*tables[kernel], *rays, fmt, *outs, per_ray, warps, stream)
+        else:       # the v3 rows hold plain positions: no leaf format
+            err = fn(*tables[kernel], *rays, *outs, per_ray, warps, stream)
         if err:
             raise RuntimeError(f'{variant["name"]}/{kernel}: cudaError {err}')
 
-    for kernel in ('inst_trace', 'wide_trace5'):
-        kinds = ((torch.float32, torch.int32, torch.float32, torch.float32)
-                 + ((torch.int32,) if kernel == 'inst_trace' else ()))
-        rows = 5 if kernel == 'inst_trace' else 4
+    for kernel in spec['kernels']:
+        kinds, rows = results[kernel]
         for set_name, rays in ray_sets.items():
-            outs = {v['name']: [torch.empty(n, dtype=k, device=dev)
-                                for k in kinds] for v in variants}
+            outs = {v['name']: [torch.empty(shape, dtype=k, device=dev)
+                                for shape, k in kinds] for v in variants}
             calls = {v['name']: (lambda v=v: launch(v, kernel, rays,
                                                     outs[v['name']]))
                      for v in variants}
@@ -253,6 +315,8 @@ def main(argv=None):
                     ms=warm[v['name']], ms_cold=cold[v['name']],
                     t_differs=int((got[0] != first[0]).sum()),
                     face_differs=int((got[1] != first[1]).sum()),
+                    outputs_differ=sum(int((a != b).sum())
+                                       for a, b in zip(got, first)),
                     stats_launch_differs=sum(
                         int((a != b).sum()) for a, b in zip(counted, got)),
                     interior_pops_per_ray=per_ray[0].float().mean().item(),

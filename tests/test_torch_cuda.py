@@ -3,7 +3,8 @@
 `blob_scene`, `textured_scene` and `two_instance_scene` take the
 scene-model module (and the procedural module) of either package, so the
 JAX package and the port build the same scene from the same numbers;
-`flat_mode` compiles a mesh scene's world-flattened tables.
+`flat_mode` compiles a mesh scene's world-flattened tables; `tied_leaf`
+builds `wide_trace`'s tables with one triangle in two slots of a leaf.
 
 The tests here launch the hand-written CUDA kernels (the ones the render
 paths run and the baseline `simple` ones) and compare them with their
@@ -129,6 +130,46 @@ def flat_mode(*compile_modules):
             c.choose_packet_mode = fn
 
 
+def tied_leaf(bvh8, rng, n=4096):
+    """`wide_trace`'s tables of 300 random triangles in which the fullest
+    leaf holds two triangles twice: the positions of its slot 0 copied to
+    slot 5 (the next row) and those of slot 2 to slot 3 (the same row),
+    each copy with other normals, uvs and shape index. Returns numpy
+    (nodes, tris, origin (3, n), direction (3, n), t_in (n,), {lower
+    face: upper face}); half the rays fly at each doubled triangle from
+    0.02 in front of it. Both slots of a pair give the same t to the bit,
+    and the lower slot must win, as the sequential leaf loop decides."""
+    tri = (rng.uniform(0, 1, (300, 1, 3))
+           + rng.uniform(-0.06, 0.06, (300, 3, 3))).astype(np.float32)
+    nrm = rng.normal(size=(300, 3, 3)).astype(np.float32)
+    uv = rng.uniform(0, 1, (300, 3, 2)).astype(np.float32)
+    shp = rng.integers(0, 5, 300).astype(np.float32)
+    wide = bvh8.build_wide_bvh(tri, nrm, uv, shp)
+    metas = wide.nodes[:, bvh8.NODE_LAYOUT[8]['meta']:][:, :8]
+    leaves = -metas[metas < 0].astype(np.int64)
+    u = leaves[np.argmax(leaves // bvh8.LEAF_ROW_LIMIT)]
+    assert u // bvh8.LEAF_ROW_LIMIT >= 6
+    row = int(u % bvh8.LEAF_ROW_LIMIT)
+    tris = wide.tris.copy()
+    flat = tris.reshape(-1, bvh8.TRI_STRIDE)   # one slot a line
+    base = row * bvh8.TRIS_PER_ROW
+    pairs = {base: base + 5, base + 2: base + 3}
+    o, d = [], []
+    for k, (lo, hi) in enumerate(pairs.items()):
+        flat[hi, 0:9] = flat[lo, 0:9]
+        flat[hi, 9:24] = rng.uniform(-1, 1, 15)
+        flat[hi, 24] = flat[lo, 24] + 1
+        p = flat[lo, 0:9].reshape(3, 3).astype(np.float64)
+        g = np.cross(p[1] - p[0], p[2] - p[0])
+        g /= np.linalg.norm(g)
+        w = rng.dirichlet((4, 4, 4), n // 2)
+        o.append((w @ p + 0.02 * g).T)
+        d.append(np.repeat(-g[:, None], n // 2, 1))
+    o = np.ascontiguousarray(np.concatenate(o, 1), np.float32)
+    d = np.ascontiguousarray(np.concatenate(d, 1), np.float32)
+    return wide.nodes, tris, o, d, np.full(n, 1e5, np.float32), pairs
+
+
 pytestmark = pytest.mark.cuda
 
 
@@ -226,8 +267,9 @@ def test_wide_trace5_kernel_matches_plain_version(cuda, leaf_fmt, monkeypatch):
 
 def test_wide_trace_kernel_matches_plain_version(cuda):
     """csrc/trace_wide.cu against wide_trace_plain, both on the card: all
-    eight outputs and the per-ray counters equal to the bit; shape is 0
-    on a miss."""
+    eight outputs and the per-ray counters equal to the bit, for the
+    launch without counters (what the direct call makes) and the one with
+    them; shape is 0 on a miss."""
     import path_tracer_tpu_torch.scene.bvh8 as bvh8
     from path_tracer_tpu_torch.ops import trace_wide
 
@@ -237,23 +279,64 @@ def test_wide_trace_kernel_matches_plain_version(cuda):
     tris = torch.from_numpy(wide.tris).to(cuda)
     o, d, t_in = _random_rays(rng, 8192, cuda)
     before = trace_wide.launches
-    kernel = trace_wide.wide_trace(nodes, tris, o, d, t_in, stats=True)
+    kernel = trace_wide.wide_trace(nodes, tris, o, d, t_in)
+    counted = trace_wide.wide_trace(nodes, tris, o, d, t_in, stats=True)
     torch.cuda.synchronize()
-    assert trace_wide.launches == before + 1
+    assert trace_wide.launches == before + 2
     plain = trace_wide.wide_trace_plain(nodes, tris, o, d, t_in, stats=True)
     assert int((plain[1] >= 0).sum()) > 30
-    for name, k, p in zip(('t', 'face', 'normal', 'uv', 'shape', 'counts'),
-                          kernel, plain):
+    for name, k, c, p in zip(('t', 'face', 'normal', 'uv', 'shape'), kernel,
+                             counted, plain):
         assert torch.equal(k, p), name
+        assert torch.equal(c, p), name + ' (launch with counters)'
+    assert torch.equal(counted[-1], plain[-1]), 'counts'
     assert bool((kernel[4][kernel[1] < 0] == 0).all())
 
 
+@pytest.mark.parametrize('spread', [1, 8])
+@pytest.mark.parametrize('variant', ['tuned', 'simple'])
+def test_wide_trace_tie_goes_to_the_lower_slot(cuda, variant, spread):
+    """On a leaf that holds one triangle in two slots, the kernel returns
+    the lower slot, as the plain version's sequential loop does, and
+    equals the plain version to the bit on every output, with and without
+    counters. With spread=8 one lane in eight holds a ray at the leaf and
+    the others miss the scene, so a warp holds at most four leaves at a
+    time: the redesigned kernel then spreads them over the warp (its leaf
+    body keeps more than 4 of 32 lanes busy, which one lane a leaf
+    cannot), and its segmented min must still pick the lower slot."""
+    import path_tracer_tpu_torch.scene.bvh8 as bvh8
+    from path_tracer_tpu_torch.ops import trace_wide
+
+    nodes, tris, o, d, t_in, pairs = tied_leaf(bvh8, np.random.default_rng(16))
+    n = t_in.size * spread
+    origin = np.full((3, n), 5.0, np.float32)
+    direction = np.zeros((3, n), np.float32)
+    direction[0] = 1.0
+    origin[:, ::spread], direction[:, ::spread] = o, d
+    nodes, tris, o, d, t_in = (torch.from_numpy(x).to(cuda) for x in (
+        nodes, tris, origin, direction, np.full(n, 1e5, np.float32)))
+    got = trace_wide.wide_trace(nodes, tris, o, d, t_in, variant=variant)
+    *counted, _, rec = trace_wide.wide_trace(
+        nodes, tris, o, d, t_in, variant=variant, stats=True, anatomy=True)
+    plain = trace_wide.wide_trace_plain(nodes, tris, o, d, t_in,
+                                        cull=variant == 'tuned')
+    for k, c, p in zip(got, counted, plain):
+        assert torch.equal(k, p) and torch.equal(c, p)
+    face = got[1].cpu().numpy()
+    for lo, hi in pairs.items():
+        assert (face == lo).sum() > 1000 and not (face == hi).any()
+    if spread > 1:
+        assert (face.reshape(-1, spread)[:, 1:] < 0).all()
+        assert (rec['simt_leaf'] > 4 / 32) == (variant == 'tuned'), rec
+
+
 def _redesigned_kernel(kernel, leaf_fmt, rng, cuda):
-    """(kernel wrapper, plain version) of one of the two redesigned
-    kernels on random geometry, both taking (o, d, t_in, **keywords)."""
+    """(kernel wrapper, plain version) of one of the three redesigned
+    kernels on random geometry, both taking (o, d, t_in, **keywords);
+    wide_trace's rows hold plain positions, whatever `leaf_fmt`."""
     import path_tracer_tpu_torch.scene.bvh8 as bvh8
     import path_tracer_tpu_torch.scene.model as model
-    from path_tracer_tpu_torch.ops import trace_inst, trace_packet
+    from path_tracer_tpu_torch.ops import trace_inst, trace_packet, trace_wide
     from path_tracer_tpu_torch.scene.compile import compile_scene
 
     if kernel == 'inst_trace':
@@ -266,6 +349,11 @@ def _redesigned_kernel(kernel, leaf_fmt, rng, cuda):
                 lambda *a, **k: trace_inst.inst_trace_plain(
                     *tables, *a, tlas, leaf_fmt=leaf_fmt, **k))
     soup = _blob_soup(rng)
+    if kernel == 'wide_trace':
+        wide = bvh8.build_wide_bvh(*soup)
+        tables = [torch.from_numpy(x).to(cuda) for x in (wide.nodes, wide.tris)]
+        return (lambda *a, **k: trace_wide.wide_trace(*tables, *a, **k),
+                lambda *a, **k: trace_wide.wide_trace_plain(*tables, *a, **k))
     tables = [torch.from_numpy(x).to(cuda) for x in bvh8.pack_wide_geom(
         bvh8.build_wide_bvh(*soup), *soup)[:2]]
     return (lambda *a, **k: trace_packet.wide_trace5(
@@ -275,7 +363,7 @@ def _redesigned_kernel(kernel, leaf_fmt, rng, cuda):
 
 
 @pytest.mark.parametrize('leaf_fmt', ['mt', 'bary', 'woop'])
-@pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5'])
+@pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5', 'wide_trace'])
 def test_simple_kernel_matches_plain_version_without_cull(cuda, kernel,
                                                           leaf_fmt, monkeypatch):
     """The baseline kernels (variant='simple', csrc/*_simple.cu) against
@@ -283,13 +371,14 @@ def test_simple_kernel_matches_plain_version_without_cull(cuda, kernel,
     per-ray counter equal to the bit. Against the redesigned kernel t is
     equal on these rays and the pops are no fewer."""
     import path_tracer_tpu_torch.scene.bvh8 as bvh8
-    from path_tracer_tpu_torch.ops import trace_inst, trace_packet
+    from path_tracer_tpu_torch.ops import trace_inst, trace_packet, trace_wide
 
     monkeypatch.setattr(bvh8, 'LEAF_FMT', leaf_fmt)
     rng = np.random.default_rng(9)
     run, plain = _redesigned_kernel(kernel, leaf_fmt, rng, cuda)
     o, d, t_in = _random_rays(rng, 8192, cuda)
-    module = trace_inst if kernel == 'inst_trace' else trace_packet
+    module = dict(inst_trace=trace_inst, wide_trace5=trace_packet,
+                  wide_trace=trace_wide)[kernel]
     before = (module.launches, module.launches_simple)
     simple = run(o, d, t_in, stats=True, variant='simple')
     uncounted = run(o, d, t_in, variant='simple')
@@ -306,7 +395,7 @@ def test_simple_kernel_matches_plain_version_without_cull(cuda, kernel,
     assert bool((new[-1] <= simple[-1]).all())
 
 
-@pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5'])
+@pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5', 'wide_trace'])
 def test_kernel_anatomy(cuda, kernel):
     """What the kernels measure of themselves is consistent: efficiencies
     in (0, 1], at least one distinct row a pass, a stack at least one
@@ -354,13 +443,14 @@ def test_kernel_wrapper_rejects_bad_input(cuda, kernel):
                 dict(nodes=torch.zeros((128, 16), device=cuda).T)):
         with pytest.raises(ValueError):
             run(**bad)
-    if kernel != 'wide_trace':
-        with pytest.raises(ValueError):
-            if kernel == 'inst_trace':
-                trace_inst.inst_trace(nodes, tris, rows, o, o, t_in, 8,
-                                      variant='fast')
-            else:
-                trace_packet.wide_trace5(nodes, tris, o, o, t_in, variant='fast')
+    with pytest.raises(ValueError):
+        if kernel == 'inst_trace':
+            trace_inst.inst_trace(nodes, tris, rows, o, o, t_in, 8,
+                                  variant='fast')
+        elif kernel == 'wide_trace5':
+            trace_packet.wide_trace5(nodes, tris, o, o, t_in, variant='fast')
+        else:
+            trace_wide.wide_trace(nodes, tris, o, o, t_in, variant='fast')
 
 
 @pytest.mark.parametrize('scene_name', ['textured_inst', 'metal_flat'])

@@ -44,8 +44,11 @@ def leaf_fmt(request, monkeypatch):
 
 
 def _compiled(mode, source):
-    """The port's PackedScene of a multi-instance scene in `mode`, from
+    """The port's PackedScene of a multi-instance scene in `mode` ('wide':
+    the 'flat' compile, whose attribute tables `wide_trace` reads), from
     the port's own compile or carried across from the JAX compile."""
+    mode = 'inst' if mode == 'inst' else 'flat'
+
     def scene(m, p):
         return blob_scene(m)[0] if mode == 'inst' else two_instance_scene(m, p)
 
@@ -72,17 +75,21 @@ def _plain(mode, packed):
         return lambda o, d, t_in, **kw: trace_inst.inst_trace_plain(
             packed.inst_nodes, packed.inst_tris, packed.inst_rows, o, d, t_in,
             tlas, stats=True, **kw)
+    if mode == 'wide':
+        return lambda o, d, t_in, **kw: trace_wide.wide_trace_plain(
+            packed.wide_nodes, packed.wide_tris, o, d, t_in, stats=True, **kw)
     return lambda o, d, t_in, **kw: trace_packet.wide_trace5_plain(
         packed.wide_nodes_g, packed.wide_tris_g, o, d, t_in, stats=True, **kw)
 
 
-@pytest.mark.parametrize('mode', ['inst', 'flat'])
+@pytest.mark.parametrize('mode', ['inst', 'flat', 'wide'])
 @pytest.mark.parametrize('leaf_fmt', LEAF_FMTS, indirect=True)
 def test_pop_cull_keeps_every_hit(leaf_fmt, mode):
     """The plain traversal with the pop cull against the one without, on
     a scene of several mesh instances: t equal exactly on every ray, the
-    same hit mask, face agreement > 0.999 with equal fu/fv there, and no
-    ray pops more with the cull than without."""
+    same hit mask, face agreement > 0.999 with the other outputs (fu/fv;
+    for wide_trace normal, uv and shape) equal there, and no ray pops
+    more with the cull than without."""
     packed = _compiled(mode, 'port')
     plain = _plain(mode, packed)
     rng = np.random.default_rng(11)
@@ -97,7 +104,7 @@ def test_pop_cull_keeps_every_hit(leaf_fmt, mode):
     same = with_cull[1] == without[1]
     assert same.float().mean() > 0.999, same.float().mean()
     for a, b in zip(with_cull[2:], without[2:]):
-        assert torch.equal(a[same], b[same])
+        assert torch.equal(a[..., same], b[..., same])
     assert bool((counts_cull <= counts_all).all())
     assert int(counts_cull.sum()) < int(counts_all.sum())
 
@@ -143,7 +150,7 @@ def test_plain_counters_count_the_leaf_triangles(leaf_fmt, kernel, source):
 
 
 @pytest.mark.parametrize('cull', [True, False])
-@pytest.mark.parametrize('mode', ['inst', 'flat'])
+@pytest.mark.parametrize('mode', ['inst', 'flat', 'wide'])
 def test_shallow_stack_drops_pushes(mode, cull):
     """Pushes past the stack's depth are dropped: with a depth of 3 the
     traversal still ends, finds no hit that the full depth does not beat
@@ -170,8 +177,9 @@ def test_shallow_stack_drops_pushes(mode, cull):
 
 def test_simple_variant_is_the_plain_version_without_cull():
     """On CPU tensors variant='simple' runs the plain version without the
-    pop cull (what the simple kernels compute), the default with it; an
-    unknown variant and an anatomy request raise."""
+    pop cull (what the simple kernels compute), the default with it, for
+    inst_trace and wide_trace; an unknown variant and an anatomy request
+    raise in all three wrappers."""
     packed = _compiled('inst', 'port')
     tables = (packed.inst_nodes, packed.inst_tris, packed.inst_rows)
     tlas = packed.host_layout.tlas_rows
@@ -191,6 +199,25 @@ def test_simple_variant_is_the_plain_version_without_cull():
     with pytest.raises(ValueError):
         trace_packet.wide_trace5(packed.wide_nodes_g, packed.wide_tris_g, o, d,
                                  t_in, variant='fast')
+
+    flat = _compiled('wide', 'port')
+    tables = (flat.wide_nodes, flat.wide_tris)
+    o, d = _rays(np.random.default_rng(15), 512, -3, 3)
+    for variant, cull in (('tuned', True), ('simple', False)):
+        got = trace_wide.wide_trace(*tables, o, d, t_in, stats=True,
+                                    variant=variant)
+        want = trace_wide.wide_trace_plain(*tables, o, d, t_in, stats=True,
+                                           cull=cull)
+        assert int((want[1] >= 0).sum()) > 30
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        if variant == 'tuned':
+            default = trace_wide.wide_trace(*tables, o, d, t_in, stats=True)
+            assert all(torch.equal(a, b) for a, b in zip(default, got))
+    with pytest.raises(ValueError):
+        trace_wide.wide_trace(*tables, o, d, t_in, variant='fast')
+    with pytest.raises(ValueError):
+        trace_wide.wide_trace(*tables, o, d, t_in, anatomy=True)
 
 
 @pytest.mark.parametrize('mode', ['inst', 'flat'])

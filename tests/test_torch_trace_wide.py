@@ -38,7 +38,7 @@ from path_tracer_tpu_torch.ops import trace_wide as ttrace_wide
 
 from test_torch_compile import (
     assert_fields_equal, jax_fields, layout_fields, port_fields)
-from test_torch_cuda import flat_mode, two_instance_scene
+from test_torch_cuda import flat_mode, tied_leaf, two_instance_scene
 
 LEAF_FMTS = ['mt', 'bary', 'woop']
 WIDE_FIELDS = ('wide_nodes', 'wide_tris', 'wide_nodes_g', 'wide_tris_g',
@@ -190,8 +190,9 @@ def test_wide_trace5_plain_matches_brute_force_and_pallas(leaf_fmt):
 
 
 def test_wide_trace_plain_matches_brute_force_and_pallas():
-    """wide_trace on CPU tensors (the v3 kernel's plain version) on 300
-    random triangles and 1024 rays: against brute force, and all eight
+    """wide_trace on CPU tensors (the v3 kernel's plain version, with the
+    pop cull) on 300 random triangles and 1024 rays: against brute force,
+    and all eight
     outputs against the Pallas kernel in interpret mode; on a miss the
     normal, uv and shape are 0."""
     rng = np.random.default_rng(0)
@@ -218,6 +219,38 @@ def test_wide_trace_plain_matches_brute_force_and_pallas():
     np.testing.assert_allclose(uvr[:, same], juv[:, same], rtol=1e-3, atol=1e-4)
     np.testing.assert_array_equal(shape[same], js[same])
     assert (counts[1] <= counts[2]).all() and (counts[2] <= 4 * counts[1]).all()
+
+
+@pytest.mark.parametrize('variant', ['tuned', 'simple'])
+def test_wide_trace_tie_goes_to_the_lower_slot(variant):
+    """A leaf that holds one triangle in two slots, in two rows or in one:
+    the lower slot wins, as the kernels' sequential leaf loop decides and
+    the warp-wide leaf test must order its reduction. Every output equals
+    that of the tables with the upper copy taken out; with the lower one
+    taken out instead the upper slot is hit at the same t to the bit, so
+    the tie was real."""
+    nodes, tris, o, d, t_in, pairs = tied_leaf(tbvh8, np.random.default_rng(16))
+
+    def run(table):
+        return [x.numpy() for x in ttrace_wide.wide_trace(
+            *_t(nodes, table, o, d, t_in), variant=variant)]
+
+    def without(slots):
+        table = tris.copy()
+        table.reshape(-1, tbvh8.TRI_STRIDE)[list(slots), 0:9] = 0.0
+        return run(table)
+
+    got = run(tris)
+    face = got[1]
+    for lo, hi in pairs.items():
+        assert (face == lo).sum() > 1000 and not (face == hi).any()
+    for a, b in zip(got, without(pairs.values())):
+        np.testing.assert_array_equal(a, b)
+    upper = without(pairs)
+    for lo, hi in pairs.items():
+        won = face == lo
+        assert (upper[1][won] == hi).all()
+        np.testing.assert_array_equal(upper[0][won], got[0][won])
 
 
 def test_v5_resolve_matches_v3_lerp():
