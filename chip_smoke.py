@@ -50,7 +50,21 @@ hand-written kernels against their plain PyTorch versions:
      in both modes against data/bench_goldens/3_viking_hall.npz within
      bench.py's Monte-Carlo bands;
  10. a diffuse + metal scene of two mesh instances, a plane and a sphere
-     at 640x320, 16 rounds, in both modes.
+     at 640x320, 16 rounds, in both modes;
+ 11. `media_render`: bench config 5 (`make_multi_mesh_scene(detail=1)`: the
+     viking hall, a glass mesh ball whose medium scatters, a metal cube) at
+     3840x2160 in 'inst' mode, 2 warm-up and 6 timed rounds: Mrays/s,
+     round ms, launches (inst_trace once a round, no other kernel), peak
+     memory, the share of lanes inside the ball (non-empty active-shape
+     list) after the timed rounds, which must be above 0, and a profile of
+     2 more rounds;
+ 12. the golden frames of bench configs 1, 2, 4 and 5 (config 5 in both
+     modes) through `render_scene`, 192x108, 24 rounds, seed 123, against
+     data/bench_goldens/ within the bands of phase 9;
+ 13. the OpenPBR scene of tests/test_torch_cuda.py (coat, metal and
+     translucent bases, emitters, the fallback material, nested glass, fog)
+     at 96x48, 16 rounds, on the card and on the CPU: finite, not black,
+     within 2% mean absolute error and 2% bias of each other.
 
 Every phase prints its lines; any failure raises and exits non-zero. The
 last three lines are the card's name and power limit, the
@@ -71,6 +85,7 @@ import time
 DEVICE = 'cuda'
 WIDTH, HEIGHT = 1920, 1080
 WARMUP_ROUNDS, TIMED_ROUNDS = 6, 24
+MEDIA_WIDTH, MEDIA_HEIGHT = 3840, 2160     # bench.py's size of config 5
 SUBSET = 65536          # rays the plain version checks per ray set
 TIMING_REPS = 7
 LEAF_FMTS = ('bary', 'mt', 'woop')
@@ -289,6 +304,161 @@ def device_profile(run):
     if not spans:
         raise RuntimeError('the profiler recorded no device activity')
     return busy / 1e3, by_name, len(spans)
+
+
+def check_golden(name, img, repo):
+    """Hold a 192x108 frame to data/bench_goldens/<name>.npz within
+    bench.py's Monte-Carlo bands: rel < max(1.6 noise, 0.02), bias <
+    max(4 bias floor, 0.02). Returns (rel, rel limit, bias, bias limit)."""
+    import numpy as np
+    golden = np.load(os.path.join(repo, 'data', 'bench_goldens', name + '.npz'))
+    ref = golden['image']
+    rel_lim = max(1.6 * float(golden['noise']), 0.02)
+    bias_lim = max(4.0 * float(golden['bias']), 0.02)
+    if img.shape != ref.shape:
+        raise RuntimeError(f'{name}: frame {img.shape}, golden {ref.shape}')
+    rel = float(np.abs(img - ref).mean() / (ref.mean() + 1e-3))
+    bias = float(abs(img.mean() - ref.mean()) / (ref.mean() + 1e-3))
+    return rel, rel_lim, bias, bias_lim
+
+
+def media_render(dev, card, launches, reset_launches, width, height,
+                 warmup=2, timed=6, profile_rounds=2):
+    """Phase 11: bench config 5 through the main entry points at
+    width x height in 'inst' mode. Returns inst_trace's launches."""
+    import torch
+    from path_tracer_tpu_torch.core.constants import SHAPE_INDEX_NONE
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.integrator.resolve import resolve
+    from path_tracer_tpu_torch.ops.intersect import SceneLayout, trace
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+    from path_tracer_tpu_torch.scene.procedural import make_multi_mesh_scene
+
+    t0 = time.perf_counter()
+    scene = make_multi_mesh_scene(detail=1)
+    packed = compile_scene(scene, aspect_ratio=width / height, device=dev)
+    layout = SceneLayout.from_packed(packed)
+    compile_s = time.perf_counter() - t0
+    if not (layout.packet_mode == 'inst' and layout.scene_has_medium
+            and layout.has_transmissive):
+        raise RuntimeError(f'config 5 compiled to {layout}')
+    config = wavefront.RenderConfig(width=width, height=height)
+    lanes = width * height
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state = wavefront.render(packed, config, warmup, seed=1, layout=layout)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = wavefront.render(packed, config, timed, layout=layout, state=state)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counted = launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for name, count in counted.items():
+        if count != (warmup + timed if name == 'inst_trace' else 0):
+            raise RuntimeError(f'config 5 launched {name} {count} times in '
+                               f'{warmup + timed} rounds')
+    inside = state['path']['active_shapes'].amin(0) != SHAPE_INDEX_NONE
+    inside_share = inside.float().mean().item()
+    # Lanes inside the ball whose next ray hits nothing: a list that the
+    # edge ties of the ball's triangles left behind (ROADMAP Queue 3).
+    hit = trace(packed, layout, state['origin'], state['direction'])
+    stale = (inside & (hit['shape'] == SHAPE_INDEX_NONE)).sum().item()
+    accum = state['accum']
+    image = resolve(accum, width, height, lane=state['lane'])
+    finite = bool(torch.isfinite(accum['xyz']).all()) and bool(
+        torch.isfinite(image).all())
+    round_ms = 1e3 * elapsed / timed
+    log('media_render', scene='5_multi_mesh_4k', packet_mode='inst',
+        width=width, height=height, rounds=timed, seconds=elapsed,
+        mrays_s=lanes * timed / elapsed / 1e6, round_ms=round_ms,
+        compile_seconds=compile_s, launches=counted, peak_gib=peak_gib,
+        inside_share=inside_share, inside_lanes=int(inside.sum().item()),
+        inside_no_hit_lanes=int(stale), samples=float(accum['count'].sum()),
+        image_mean=float(image.mean()), finite=finite,
+        material_types=list(layout.material_types), card=card)
+    if not (finite and inside_share > 0.0 and float(accum['count'].sum()) > 0
+            and tuple(image.shape) == (height, width, 3)):
+        raise RuntimeError('config 5: the frame is not finite, holds no '
+                           'sample, or no lane is inside the glass ball')
+    del hit, image
+    busy_ms, by_name, n_kernels = device_profile(lambda: wavefront.render(
+        packed, config, profile_rounds, layout=layout, state=state))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log('media_profile', rounds=profile_rounds,
+        device_busy_ms_per_round=busy_ms / profile_rounds,
+        kernels_per_round=n_kernels / profile_rounds,
+        idle_share_vs_unprofiled_round=1.0 - busy_ms / profile_rounds / round_ms,
+        traversal_kernel_ms_per_round=sum(
+            v for k, v in by_name.items() if 'inst_trace_kernel' in k)
+        / profile_rounds,
+        top_kernels_ms_per_round=[[k, v / profile_rounds, v / busy_ms]
+                                  for k, v in top])
+    return counted['inst_trace']
+
+
+def bench_goldens(dev, repo, flat_mode, launches, reset_launches, rounds=24):
+    """Phase 12: the golden frames of bench configs 1, 2, 4 and 5 (5 in
+    both packet modes) through render_scene, each with the kernel its mode
+    launches once a round (configs 1 and 2 have no mesh: none)."""
+    from path_tracer_tpu_torch import render_scene
+    from path_tracer_tpu_torch.scene import compile as scene_compile
+    from path_tracer_tpu_torch.scene import procedural
+
+    configs = [('1_cornell', procedural.make_cornell_scene, 'analytic'),
+               ('2_spheres_dof', procedural.make_sphere_array_scene, 'analytic'),
+               ('4_360_mixed', procedural.make_360_scene, 'inst'),
+               ('5_multi_mesh_4k',
+                lambda: procedural.make_multi_mesh_scene(detail=1), 'inst'),
+               ('5_multi_mesh_4k',
+                lambda: procedural.make_multi_mesh_scene(detail=1), 'flat')]
+    kernel = dict(analytic=None, inst='inst_trace', flat='wide_trace5')
+    for name, make, mode in configs:
+        scene = make()
+        reset_launches()
+        with (flat_mode(scene_compile) if mode == 'flat'
+              else contextlib.nullcontext()):
+            img = render_scene(scene, 192, 108, spp_rounds=rounds, seed=123,
+                               device=dev).cpu().numpy()
+        counted = launches()
+        rel, rel_lim, bias, bias_lim = check_golden(name, img, repo)
+        log('golden', name=name, packet_mode=mode, rel_err=rel,
+            rel_limit=rel_lim, bias=bias, bias_limit=bias_lim,
+            launches={k: v for k, v in counted.items() if v})
+        if any(v != (rounds if k == kernel[mode] else 0)
+               for k, v in counted.items()):
+            raise RuntimeError(f"the '{mode}' {name} frame launched {counted}")
+        if not (rel < rel_lim and bias < bias_lim):
+            raise RuntimeError(f"the '{mode}' {name} golden frame is outside "
+                               'its bands')
+
+
+def openpbr_card_vs_cpu(dev, width=96, height=48, rounds=16, seed=7):
+    """Phase 13: the OpenPBR scene on the card and on the CPU."""
+    import numpy as np
+    from path_tracer_tpu_torch import render_scene
+    from path_tracer_tpu_torch.scene import model, procedural
+    from test_torch_cuda import openpbr_scene
+
+    frames = {}
+    for device in (dev, 'cpu'):
+        t0 = time.perf_counter()
+        frames[str(device)] = render_scene(
+            openpbr_scene(model, procedural), width, height, spp_rounds=rounds,
+            seed=seed, device=device).cpu().numpy()
+        frames[str(device) + '_s'] = time.perf_counter() - t0
+    img, ref = frames[str(dev)], frames['cpu']
+    rel = float(np.abs(img - ref).mean() / (ref.mean() + 1e-3))
+    bias = float(abs(img.mean() - ref.mean()) / (ref.mean() + 1e-3))
+    finite = bool(np.isfinite(img).all() and np.isfinite(ref).all())
+    log('openpbr', width=width, height=height, rounds=rounds, finite=finite,
+        mean_card=float(img.mean()), mean_cpu=float(ref.mean()),
+        card_vs_cpu_rel_err=rel, card_vs_cpu_bias=bias,
+        card_seconds=frames[str(dev) + '_s'], cpu_seconds=frames['cpu_s'])
+    if not (finite and img.mean() > 0.01 and ref.mean() > 0.01
+            and rel < 0.02 and bias < 0.02):
+        raise RuntimeError('the OpenPBR frames are black, not finite or '
+                           'differ between the card and the CPU')
 
 
 def main():
@@ -667,22 +837,16 @@ def main():
         raise RuntimeError('the portable traversal disagrees with wide_trace5')
 
     # -- 9. golden frame, both modes ----------------------------------------
-    golden = np.load(os.path.join(repo, 'data', 'bench_goldens',
-                                  '3_viking_hall.npz'))
-    ref = golden['image']
-    noise, bias_floor = float(golden['noise']), float(golden['bias'])
-    rel_lim, bias_lim = max(1.6 * noise, 0.02), max(4.0 * bias_floor, 0.02)
     for mode in ('inst', 'flat'):
         scene = make_viking_hall_scene(detail=1)
         with (flat_mode(scene_compile) if mode == 'flat'
               else contextlib.nullcontext()):
             img = render_scene(scene, 192, 108, spp_rounds=24, seed=123,
                                device=dev).cpu().numpy()
-        rel = float(np.abs(img - ref).mean() / (ref.mean() + 1e-3))
-        bias = float(abs(img.mean() - ref.mean()) / (ref.mean() + 1e-3))
+        rel, rel_lim, bias, bias_lim = check_golden('3_viking_hall', img, repo)
         log('golden', name='3_viking_hall', packet_mode=scene.packet_mode,
             rel_err=rel, rel_limit=rel_lim, bias=bias, bias_limit=bias_lim)
-        if (scene.packet_mode != mode or img.shape != ref.shape
+        if (scene.packet_mode != mode
                 or not (rel < rel_lim and bias < bias_lim)):
             raise RuntimeError(f"the '{mode}' viking golden frame is outside "
                                'its bands')
@@ -708,6 +872,18 @@ def main():
             and rel < 0.02 and bias < 0.02):
         raise RuntimeError('the diffuse + metal frames are black, not finite '
                            'or differ between the two modes')
+
+    # -- 11. bench config 5 at 3840x2160: media and nested dielectrics -------
+    del packs, flats, packed, flat, bounce_rays, flush, flush_buffer
+    torch.cuda.empty_cache()
+    records['inst_trace']['launches_media_render'] = media_render(
+        dev, card, launches, reset_launches, MEDIA_WIDTH, MEDIA_HEIGHT)
+
+    # -- 12. golden frames of bench configs 1, 2, 4 and 5 --------------------
+    bench_goldens(dev, repo, flat_mode, launches, reset_launches)
+
+    # -- 13. the OpenPBR scene, card against CPU ------------------------------
+    openpbr_card_vs_cpu(dev)
 
     print(card)
     sources = dict(

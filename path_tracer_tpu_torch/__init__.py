@@ -15,7 +15,14 @@ from .integrator.wavefront import RenderConfig, render, reset
 from .ops.intersect import SceneLayout
 from .scene.compile import PackedScene, compile_scene
 from .scene.model import Scene, Transform
-from .scene.procedural import make_viking_hall_scene
+from .scene.procedural import (
+    make_360_scene,
+    make_cornell_scene,
+    make_default_scene,
+    make_multi_mesh_scene,
+    make_sphere_array_scene,
+    make_viking_hall_scene,
+)
 
 __version__ = '0.1.0'
 

@@ -1,6 +1,6 @@
 """Vectorized random sampling: RNG, directions, vMF, GGX.
 
-Port of path_tracer_tpu/core/sampling.py (the parts the surface path
+Port of path_tracer_tpu/core/sampling.py (the parts the integrator
 draws from). Channels-first: directions are (3, N), GGX alphas (2, N),
 uniforms (N,).
 
@@ -103,6 +103,22 @@ def von_mises_fisher_pdf(kappa, mu, direction):
     pdf = c * torch.exp(safe_kappa * (cos_theta - 1.0))
     return torch.where(kappa < EPSILON, torch.full_like(pdf, 1.0 / (4.0 * PI)),
                        pdf)
+
+
+def sample_direction_hg(anisotropy, u1, u2):
+    """Henyey-Greenstein phase sample (common.glsl.inc:259-276); (3, N)
+    in the frame whose +Z is the incident direction. Keeps the
+    reference's convention, in which the sampled mean cosine is
+    -anisotropy relative to +Z."""
+    g = anisotropy
+    iso_z = 1.0 - 2.0 * u1
+    g_safe = torch.where(torch.abs(g) < 1e-3, 1.0, g)
+    s = (1.0 - g_safe * g_safe) / (1.0 + g_safe - 2.0 * g_safe * u1)
+    aniso_z = -(1.0 + g_safe * g_safe - s * s) / (2.0 * g_safe)
+    z = torch.clamp(torch.where(torch.abs(g) < 1e-3, iso_z, aniso_z), -1.0, 1.0)
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = u2 * TAU
+    return vec3(r * torch.cos(phi), r * torch.sin(phi), z)
 
 
 # --- GGX microfacet model with anisotropic roughness ----------------------

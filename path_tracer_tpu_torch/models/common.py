@@ -1,9 +1,9 @@
 """Shared material machinery: texture sampling and attribute fetch.
 
-Port of path_tracer_tpu/models/common.py (scene.glsl.inc:181-302) for
-the material models the port dispatches. Channels-first: UVs are
-(2, N), spectra (3/4, N); material columns are gathered along the
-trailing material axis into a `ctx` dict once per scatter.
+Port of path_tracer_tpu/models/common.py (scene.glsl.inc:181-302).
+Channels-first: UVs are (2, N), spectra (3/4, N); material columns are
+gathered along the trailing material axis into a `ctx` dict once per
+scatter, so the models themselves are elementwise math.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ import torch
 
 from ..core.constants import (
     MATERIAL_TYPE_BASIC_METAL,
+    MATERIAL_TYPE_BASIC_TRANSLUCENT,
+    MATERIAL_TYPE_OPENPBR,
     TEXTURE_FLAG_FILTER_NEAREST,
     TEXTURE_INDEX_NONE,
 )
@@ -145,14 +147,68 @@ def col(table_column, i):
     return table_column[..., i]
 
 
+def _presence(types):
+    """Static (metal, translucent, OpenPBR) presence flags from
+    SceneLayout.material_types; an empty tuple means all of them."""
+    if not types:
+        return True, True, True
+    return (MATERIAL_TYPE_BASIC_METAL in types,
+            MATERIAL_TYPE_BASIC_TRANSLUCENT in types,
+            MATERIAL_TYPE_OPENPBR in types)
+
+
+def _medium_columns(m, i, has_trans, has_pbr):
+    """The columns load_medium reads, for the models present (the two
+    transmission columns both models read are gathered once)."""
+    ctx = {}
+    if has_trans or has_pbr:
+        ctx.update(
+            transmission_spectrum=col(m.transmission_spectrum, i),
+            transmission_depth=col(m.transmission_depth, i),
+        )
+    if has_trans:
+        ctx.update(
+            ior=col(m.ior, i),
+            abbe_number=col(m.abbe_number, i),
+            scattering_spectrum=col(m.scattering_spectrum, i),
+            scattering_anisotropy=col(m.scattering_anisotropy, i),
+        )
+    if has_pbr:
+        ctx.update(
+            specular_ior=col(m.specular_ior, i),
+            transmission_scatter_spectrum=col(m.transmission_scatter_spectrum, i),
+            transmission_scatter_anisotropy=col(
+                m.transmission_scatter_anisotropy, i),
+            transmission_dispersion_abbe=col(m.transmission_dispersion_abbe, i),
+        )
+    return ctx
+
+
+def fetch_medium_ctx(packed, material_index, lam, types=()):
+    """Gather only the columns load_medium reads (no texture taps);
+    columns of models absent from the scene are not gathered."""
+    _, has_trans, has_pbr = _presence(types)
+    m = packed.materials
+    ctx = dict(type=col(m.type, material_index), lam=lam)
+    ctx.update(_medium_columns(m, material_index, has_trans, has_pbr))
+    return ctx
+
+
+ALL_TEXTURED_ATTRS = ('base', 'emission', 'specular', 'roughness',
+                      'roughness_anisotropy')
+
+
 def fetch_ctx(packed, material_index, lam, uv, exterior_ior,
               textured=True, atlas_size=8, types=(),
-              filter_modes=(True, True), textured_attrs=('base',),
+              filter_modes=(True, True), textured_attrs=ALL_TEXTURED_ATTRS,
               use_quad=False):
-    """Gather the material attributes the ported models read for the
-    given lanes (material_index: (N,) slots into the table). `types` is
-    the static set of material types in the scene: the metal model's
-    columns are gathered only where it is present."""
+    """Gather every material attribute the models read for the given
+    lanes (material_index: (N,) slots into the table): the analogue of
+    bsdf_parameters (scene.glsl.inc:659-665) with all table reads done.
+    `types` is the static set of material types in the scene (empty:
+    all of them); columns read only by models absent from it are not
+    gathered."""
+    has_metal, has_trans, has_pbr = _presence(types)
     m = packed.materials
     i = material_index
 
@@ -175,13 +231,32 @@ def fetch_ctx(packed, material_index, lam, uv, exterior_ior,
         exterior_ior=exterior_ior,
         base_reflectance=reflectance(m.base_spectrum, m.base_texture, 'base'),
     )
-    if MATERIAL_TYPE_BASIC_METAL in types:
+    if has_metal or has_pbr:
+        ctx['specular_reflectance'] = reflectance(
+            m.specular_spectrum, m.specular_texture, 'specular')
+    if has_metal or has_trans or has_pbr:
+        ctx['roughness'] = value(m.roughness, m.roughness_texture, 'roughness')
+        ctx['roughness_anisotropy'] = value(
+            m.roughness_anisotropy, m.roughness_anisotropy_texture,
+            'roughness_anisotropy')
+    ctx.update(_medium_columns(m, i, has_trans, has_pbr))
+    if has_pbr:
         ctx.update(
-            specular_reflectance=reflectance(
-                m.specular_spectrum, m.specular_texture, 'specular'),
-            roughness=value(m.roughness, m.roughness_texture, 'roughness'),
-            roughness_anisotropy=value(
-                m.roughness_anisotropy, m.roughness_anisotropy_texture,
-                'roughness_anisotropy'),
+            base_weight=col(m.base_weight, i),
+            base_metalness=col(m.base_metalness, i),
+            base_diffuse_roughness=col(m.base_diffuse_roughness, i),
+            specular_weight=col(m.specular_weight, i),
+            transmission_weight=col(m.transmission_weight, i),
+            coat_weight=col(m.coat_weight, i),
+            coat_spectrum=col(m.coat_spectrum, i),
+            coat_ior=col(m.coat_ior, i),
+            coat_roughness=col(m.coat_roughness, i),
+            coat_roughness_anisotropy=col(m.coat_roughness_anisotropy, i),
+            # coat_darkening stays in the table but no model reads it
+            # (the reference declares it and likewise never reads it).
+            emission_reflectance=reflectance(
+                m.emission_spectrum, m.emission_texture, 'emission'),
+            emission_luminance=col(m.emission_luminance, i),
+            layer_bounce_limit=col(m.layer_bounce_limit, i),
         )
     return ctx

@@ -1,8 +1,9 @@
 """Scenes shared by the port's tests, and the port's tests that need a card.
 
-`blob_scene`, `textured_scene` and `two_instance_scene` take the
-scene-model module (and the procedural module) of either package, so the
-JAX package and the port build the same scene from the same numbers;
+`blob_scene`, `textured_scene`, `two_instance_scene`, `glass_ball_scene`
+and `openpbr_scene` take the scene-model module (and the
+procedural module) of either package, so the JAX package and the port
+build the same scene from the same numbers;
 `flat_mode` compiles a mesh scene's world-flattened tables; `tied_leaf`
 builds `wide_trace`'s tables with one triangle in two slots of a leaf.
 
@@ -21,6 +22,7 @@ import contextlib
 
 from path_tracer_tpu_torch.core.constants import (
     MATERIAL_TYPE_BASIC_DIFFUSE, MATERIAL_TYPE_BASIC_METAL,
+    MATERIAL_TYPE_BASIC_TRANSLUCENT, MATERIAL_TYPE_OPENPBR,
     TEXTURE_TYPE_RADIANCE, TEXTURE_TYPE_REFLECTANCE_WITH_ALPHA)
 
 
@@ -112,6 +114,110 @@ def two_instance_scene(m, p, roughness=0.3):
         transform=m.Transform(position=[0.0, -6.5, 2.4],
                               rotation=[np.pi / 2.2, 0, 0]))
     cam.pinhole.field_of_view_in_degrees = 70.0
+    return scene
+
+
+def glass_ball_scene(m, p):
+    """Bench config 5 (`make_multi_mesh_scene`) cut to a test's size: a
+    terraced diffuse floor mesh, config 5's glass mesh ball
+    (BASIC_TRANSLUCENT, IOR 1.5, Abbe 35, transmission depth 1, so its
+    medium absorbs and scatters) as a second mesh instance, and its metal
+    cube, under the default sky."""
+    scene = m.Scene()
+    pos, nrm, uv, faces = p.heightfield(12, size=10.0, amplitude=0.3)
+    floor = scene.create_mesh(name='floor', positions=pos, normals=nrm,
+                              uvs=uv, faces=faces)
+    pos, nrm, uv, faces = p.uv_sphere(24, 12)
+    ball = scene.create_mesh(name='ball', positions=pos, normals=nrm, uvs=uv,
+                             faces=faces)
+    wood = scene.create_material(MATERIAL_TYPE_BASIC_DIFFUSE, name='wood',
+                                 base_color=np.asarray([0.45, 0.31, 0.18]))
+    glass = scene.create_material(
+        MATERIAL_TYPE_BASIC_TRANSLUCENT, name='glass', ior=1.5,
+        abbe_number=35.0, roughness=0.0,
+        transmission_color=np.asarray([0.95, 0.97, 1.0]),
+        transmission_depth=1.0)
+    metal = scene.create_material(MATERIAL_TYPE_BASIC_METAL, name='cube-metal',
+                                  base_color=np.asarray([0.95, 0.64, 0.54]),
+                                  roughness=0.2)
+    scene.create_entity(m.ENTITY_TYPE_MESH_INSTANCE, mesh=floor, material=wood,
+                        transform=m.Transform(position=[0, 0, -0.6]))
+    scene.create_entity(m.ENTITY_TYPE_MESH_INSTANCE, mesh=ball, material=glass,
+                        transform=m.Transform(position=[0.2, -1.5, 0.6],
+                                              scale=0.9))
+    scene.create_entity(m.ENTITY_TYPE_CUBE, material=metal,
+                        transform=m.Transform(position=[-1.6, -0.5, 0.0],
+                                              scale=0.5))
+    cam = scene.create_entity(
+        m.ENTITY_TYPE_CAMERA,
+        transform=m.Transform(position=[0.0, -5.0, 1.2],
+                              rotation=[np.pi / 2.1, 0, 0]))
+    cam.pinhole.field_of_view_in_degrees = 60.0
+    return scene
+
+
+def openpbr_scene(m, p):
+    """tests/test_openpbr.py's OpenPBR sphere, four times over: with a
+    coat, with a metal base, with a translucent base and emissive; in
+    front of them a smooth glass mesh ball whose medium scatters,
+    overlapped by a rough analytic glass sphere (nested dielectrics);
+    all on a plane with no material (the fallback OpenPBR slot 0), under
+    a dim emissive OpenPBR ceiling, in fog."""
+    scene = m.Scene()
+    kinds = [
+        dict(base_color=np.asarray([0.6, 0.1, 0.1]), coat_weight=1.0,
+             coat_roughness=0.05, coat_color=np.asarray([0.9, 0.8, 0.6]),
+             specular_roughness=0.4),
+        dict(base_color=np.asarray([0.95, 0.8, 0.6]), base_metalness=1.0,
+             specular_roughness=0.2, layer_bounce_limit=4),
+        dict(base_color=np.asarray([0.9, 0.9, 0.9]), transmission_weight=1.0,
+             transmission_depth=0.5, specular_roughness=0.1,
+             transmission_color=np.asarray([0.7, 0.9, 1.0]),
+             transmission_dispersion_abbe_number=30.0),
+        dict(base_color=np.zeros(3), specular_weight=0.5,
+             emission_color=np.asarray([1.0, 0.4, 0.1]),
+             emission_luminance=5.0),
+    ]
+    for k, kw in enumerate(kinds):
+        mat = scene.create_material(MATERIAL_TYPE_OPENPBR, **kw)
+        scene.create_entity(m.ENTITY_TYPE_SPHERE, material=mat,
+                            transform=m.Transform(
+                                position=[-1.8 + 1.2 * k, 2.5, 0.5],
+                                scale=0.5))
+    pos, nrm, uv, faces = p.uv_sphere(24, 12)
+    ball = scene.create_mesh(name='ball', positions=pos, normals=nrm, uvs=uv,
+                             faces=faces)
+    smooth = scene.create_material(
+        MATERIAL_TYPE_BASIC_TRANSLUCENT, name='smooth-glass', ior=1.5,
+        abbe_number=35.0, roughness=0.0,
+        transmission_color=np.asarray([0.9, 0.95, 1.0]),
+        transmission_depth=1.0, scattering_anisotropy=0.4)
+    rough = scene.create_material(
+        MATERIAL_TYPE_BASIC_TRANSLUCENT, name='rough-glass', ior=1.33,
+        abbe_number=25.0, roughness=0.25,
+        transmission_color=np.asarray([1.0, 0.9, 0.8]),
+        transmission_depth=0.5, scattering_color=np.asarray([0.2, 0.2, 0.2]))
+    scene.create_entity(m.ENTITY_TYPE_MESH_INSTANCE, mesh=ball, material=smooth,
+                        transform=m.Transform(position=[-0.4, 1.0, 0.5],
+                                              scale=0.5))
+    scene.create_entity(m.ENTITY_TYPE_SPHERE, material=rough,
+                        transform=m.Transform(position=[0.2, 1.1, 0.45],
+                                              scale=0.4))
+    scene.create_entity(m.ENTITY_TYPE_PLANE,
+                        transform=m.Transform(position=[0, 0, 0]))
+    # A dim emissive ceiling facing down: in fog the sky is out of reach
+    # (every ray that misses scatters before it), so this lights the frame.
+    ceiling = scene.create_material(
+        MATERIAL_TYPE_OPENPBR, base_color=np.asarray([0.5, 0.5, 0.5]),
+        emission_color=np.ones(3), emission_luminance=1.0)
+    scene.create_entity(m.ENTITY_TYPE_PLANE, material=ceiling,
+                        transform=m.Transform(position=[0, 0, 3.0],
+                                              rotation=[np.pi, 0, 0]))
+    cam = scene.create_entity(m.ENTITY_TYPE_CAMERA,
+                              transform=m.Transform(position=[0, -1.5, 0.8],
+                                                    rotation=[np.pi / 2, 0, 0]))
+    cam.pinhole.field_of_view_in_degrees = 60.0
+    scene.root.scatter_rate = 0.05
     return scene
 
 
@@ -478,6 +584,29 @@ def test_render_scene_on_card_matches_cpu(cuda, scene_name):
     img = frame(cuda).cpu().numpy()
     assert img.shape == ref.shape == (32, 64, 3)
     assert np.isfinite(img).all()
+    rel = np.abs(img - ref).mean() / (ref.mean() + 1e-3)
+    bias = abs(img.mean() - ref.mean()) / (ref.mean() + 1e-3)
+    assert rel < 0.02 and bias < 0.02, (rel, bias)
+
+
+def test_openpbr_scene_on_card_matches_cpu(cuda):
+    """The OpenPBR scene (coat, metal and translucent bases, emitters, the
+    fallback material, nested glass, fog), 96x48, 16 rounds, seed 7, on
+    the card against the CPU: the same random streams, so only last-bit
+    differences of transcendentals separate the frames. Within 2% mean
+    absolute error and 2% bias."""
+    import path_tracer_tpu_torch as tpkg
+    import path_tracer_tpu_torch.scene.model as model
+    import path_tracer_tpu_torch.scene.procedural as proc
+
+    def frame(device):
+        return tpkg.render_scene(openpbr_scene(model, proc), 96, 48,
+                                 spp_rounds=16, seed=7, device=device)
+
+    ref = frame('cpu').numpy()
+    img = frame(cuda).cpu().numpy()
+    assert img.shape == ref.shape == (48, 96, 3)
+    assert np.isfinite(img).all() and img.mean() > 0.01
     rel = np.abs(img - ref).mean() / (ref.mean() + 1e-3)
     bias = abs(img.mean() - ref.mean()) / (ref.mean() + 1e-3)
     assert rel < 0.02 and bias < 0.02, (rel, bias)

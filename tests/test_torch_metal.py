@@ -27,8 +27,7 @@ import path_tracer_tpu_torch.scene.procedural as tproc
 from path_tracer_tpu.core import optics as joptics
 from path_tracer_tpu.core import sampling as jsampling
 from path_tracer_tpu.core.constants import (
-    MATERIAL_TYPE_BASIC_DIFFUSE, MATERIAL_TYPE_BASIC_METAL,
-    MATERIAL_TYPE_BASIC_TRANSLUCENT, MATERIAL_TYPE_OPENPBR)
+    MATERIAL_TYPE_BASIC_DIFFUSE, MATERIAL_TYPE_BASIC_METAL)
 from path_tracer_tpu.models import basic_metal as jmetal
 from path_tracer_tpu.models import dispatch as jdispatch
 from path_tracer_tpu_torch.core import optics as toptics
@@ -176,13 +175,6 @@ def test_dispatch_selects_by_material_type():
     for a, b in zip(tout[1:3], jout[1:3]):
         _close(a, b)
     assert (tout[3].numpy() == np.asarray(jout[3])).mean() > 0.999
-
-
-@pytest.mark.parametrize('mat_type', [MATERIAL_TYPE_BASIC_TRANSLUCENT,
-                                      MATERIAL_TYPE_OPENPBR])
-def test_unported_models_raise(mat_type):
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        tdispatch.check_types((MATERIAL_TYPE_BASIC_DIFFUSE, mat_type))
 
 
 @pytest.fixture(scope='module')

@@ -62,7 +62,9 @@ def test_port_imports_no_jax():
             'from path_tracer_tpu_torch.integrator import scatter, wavefront\n'
             'from path_tracer_tpu_torch.ops import trace_inst, trace_packet, '
             'trace_wide, build\n'
-            'from path_tracer_tpu_torch.models import basic_metal\n'
+            'from path_tracer_tpu_torch.models import basic_metal, '
+            'basic_translucent, openpbr\n'
+            'from path_tracer_tpu_torch.core import optics\n'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "path_tracer_tpu" or m.startswith("path_tracer_tpu.")]\n'
             'assert not bad, bad\n')
