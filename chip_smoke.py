@@ -64,9 +64,34 @@ hand-written kernels against their plain PyTorch versions:
  13. the OpenPBR scene of tests/test_torch_cuda.py (coat, metal and
      translucent bases, emitters, the fallback material, nested glass, fog)
      at 96x48, 16 rounds, on the card and on the CPU: finite, not black,
-     within 2% mean absolute error and 2% bias of each other.
+     within 2% mean absolute error and 2% bias of each other;
+ 14. bench config 6 (`make_terrain_scene(side=900)`, 1.62M unique
+     triangles) compiled once for 16:9: seconds, triangles, the bytes of
+     every table;
+ 15. config 6 at 1920x1080 through `render` with waves=1 and waves=4, 2
+     warm-up and 6 timed rounds each: Mrays/s, round ms, peak memory,
+     inst_trace once a round and no other kernel;
+ 16. `trace` with and without the ray sort on the waves=4 state's rays;
+ 17. inst_trace on config 6's bounce rays: warm and cold ms in lane and
+     sorted order, bit-equal to its plain version on a 65,536-ray subset,
+     its bound from the counted pops and triangles;
+ 18. resolve of the waves=4 state twice: bit-equal or not (reported);
+     config 6's golden frame (192x108, 24 rounds, seed 123, one wave) on
+     the same tables within bench.py's bands;
+ 19. `checkpoint`: the viking hall at 1920x1080 through render_resilient
+     with one injected failure, bit-equal to the uninterrupted render;
+     the checkpoint loaded on the CPU; save and load ms, file size;
+ 20. `cli`: `python -m path_tracer_tpu_torch render` of the reference
+     schema's scene file and `... demo cornell`, subprocesses on the card
+     at 192x108, 8 rounds: exit 0 and a PNG that is not black;
+ 21. `session`: app.Session on the viking hall at 960x540: steady and
+     restart frame ms, a material edit through the incremental compile
+     bit-equal to a full compile's frame, preview ms in all seven modes,
+     pick ms, the mesh-complexity heatmap non-zero on mesh pixels with
+     the kernel's per-ray counters equal to the plain version's.
 
-Every phase prints its lines; any failure raises and exits non-zero. The
+Every phase prints its lines and its seconds (`phase_seconds`); any
+failure raises and exits non-zero. The
 last three lines are the card's name and power limit, the
 {"kernels": [...]} record and {"ok": true, "device": {...}}. Without a
 CUDA device it exits 1 and prints no result.
@@ -86,6 +111,7 @@ DEVICE = 'cuda'
 WIDTH, HEIGHT = 1920, 1080
 WARMUP_ROUNDS, TIMED_ROUNDS = 6, 24
 MEDIA_WIDTH, MEDIA_HEIGHT = 3840, 2160     # bench.py's size of config 5
+SESSION_WIDTH, SESSION_HEIGHT = 960, 540   # app.Session's default size
 SUBSET = 65536          # rays the plain version checks per ray set
 TIMING_REPS = 7
 LEAF_FMTS = ('bary', 'mt', 'woop')
@@ -461,6 +487,519 @@ def openpbr_card_vs_cpu(dev, width=96, height=48, rounds=16, seed=7):
                            'differ between the card and the CPU')
 
 
+def tree_map(fn, tree):
+    """fn over the leaves of a nested dict (a render state)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_equal(a, b):
+    """Every leaf of two render states equal bit for bit (same device)."""
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def phase_clock():
+    """lap(name) logs the seconds since the previous lap (or since this
+    call): each phase's own time."""
+    last = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        log('phase_seconds', of=name, seconds=now - last[0])
+        last[0] = now
+    return lap
+
+
+def host_ms(fn, reps=3):
+    """Median host milliseconds of fn() ending in a device synchronize,
+    after one warm-up call: the time a caller waits for a result."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def terrain_compile(dev, width, height, side=900):
+    """Phase 14: bench config 6 (make_terrain_scene(side): 2 side^2 unique
+    triangles in one mesh instance) compiled once at the frame's aspect;
+    the 192x108 golden frame has the same aspect and uses it too."""
+    from path_tracer_tpu_torch.ops.intersect import SceneLayout
+    from path_tracer_tpu_torch.scene.compile import PackedScene, compile_scene
+    from path_tracer_tpu_torch.scene.procedural import make_terrain_scene
+    import dataclasses
+
+    t0 = time.perf_counter()
+    scene = make_terrain_scene(side=side)
+    packed = compile_scene(scene, aspect_ratio=width / height, device=dev)
+    layout = SceneLayout.from_packed(packed)
+    seconds = time.perf_counter() - t0
+    table_bytes = {}
+    for f in dataclasses.fields(PackedScene):
+        for leaf in tree_values(getattr(packed, f.name)):
+            table_bytes[f.name] = (table_bytes.get(f.name, 0)
+                                   + leaf.numel() * leaf.element_size())
+    inst_bytes = sum(table_bytes[k] for k in ('inst_nodes', 'inst_tris',
+                                              'inst_rows'))
+    log('terrain_compile', scene='6_terrain_stream', side=side,
+        seconds=seconds, triangles=sum(len(m.faces) for m in scene.meshes),
+        packet_mode=layout.packet_mode, tlas_rows=layout.tlas_rows,
+        inst_node_rows=int(packed.inst_nodes.shape[0]),
+        inst_leaf_rows=int(packed.inst_tris.shape[0]),
+        inst_table_bytes=inst_bytes, all_table_bytes=sum(table_bytes.values()),
+        table_bytes=table_bytes)
+    if layout.packet_mode != 'inst':
+        raise RuntimeError(f'config 6 compiled to {layout.packet_mode}')
+    return packed, layout, inst_bytes
+
+
+def tree_values(value):
+    """The tensors of a PackedScene field (a tensor, a dict of tensors or
+    a MaterialTable)."""
+    import dataclasses
+    if isinstance(value, dict):
+        return list(value.values())
+    if dataclasses.is_dataclass(value):
+        return [getattr(value, f.name) for f in dataclasses.fields(value)]
+    return [value]
+
+
+def terrain_render(dev, card, packed, layout, launches, reset_launches,
+                   width, height, waves, warmup=2, timed=6, profile_rounds=2):
+    """Phase 15: config 6 at width x height with `waves` sample waves
+    through `render`: warm-up and timed rounds, Mrays/s (every round
+    traces one ray per slot), round ms, peak memory and the kernels
+    launched (inst_trace once a round, nothing else), then the device
+    time by kernel over `profile_rounds` more rounds. Returns the state
+    and inst_trace's launches in the warm-up and timed rounds."""
+    import torch
+    from path_tracer_tpu_torch.integrator import wavefront
+
+    config = wavefront.RenderConfig(width=width, height=height, waves=waves)
+    slots = waves * width * height
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state = wavefront.render(packed, config, warmup, seed=1, layout=layout)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = wavefront.render(packed, config, timed, layout=layout, state=state)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counted = launches()
+    accum = state['accum']
+    finite = bool(torch.isfinite(accum['xyz']).all())
+    log('terrain_render', scene='6_terrain_stream', width=width,
+        height=height, waves=waves, slots=slots, rounds=timed,
+        seconds=elapsed, mrays_s=slots * timed / elapsed / 1e6,
+        round_ms=1e3 * elapsed / timed, launches=counted,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        samples=float(accum['count'].sum()), finite=finite, card=card)
+    for name, count in counted.items():
+        if count != (warmup + timed if name == 'inst_trace' else 0):
+            raise RuntimeError(f'config 6 at waves={waves} launched {name} '
+                               f'{count} times in {warmup + timed} rounds')
+    if not (finite and float(accum['count'].sum()) > 0):
+        raise RuntimeError(f'config 6 at waves={waves}: the accumulator is '
+                           'not finite or holds no sample')
+    round_ms = 1e3 * elapsed / timed
+    busy_ms, by_name, n_kernels = device_profile(lambda: wavefront.render(
+        packed, config, profile_rounds, layout=layout, state=state))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log('terrain_profile', waves=waves, rounds=profile_rounds,
+        device_busy_ms_per_round=busy_ms / profile_rounds,
+        kernels_per_round=n_kernels / profile_rounds,
+        idle_share_vs_unprofiled_round=1.0 - busy_ms / profile_rounds / round_ms,
+        traversal_kernel_ms_per_round=sum(
+            v for k, v in by_name.items() if 'inst_trace_kernel' in k)
+        / profile_rounds,
+        top_kernels_ms_per_round=[[k, v / profile_rounds, v / busy_ms]
+                                  for k, v in top])
+    return state, counted['inst_trace']
+
+
+def terrain_sort(packed, layout, state):
+    """Phase 16: `trace` with and without the ray sort on the rays of the
+    waves=4 state, the measurement ROADMAP's per-wave sort waits on."""
+    from path_tracer_tpu_torch.ops.intersect import trace
+
+    o, d = state['origin'], state['direction']
+    ms = {order: cuda_ms(lambda: trace(packed, layout, o, d, sort_rays=flag),
+                         reps=3)
+          for order, flag in (('sorted', True), ('unsorted', False))}
+    log('terrain_trace_sort', rays=int(o.shape[1]), ms=ms,
+        sort_gain_ms=ms['unsorted'] - ms['sorted'])
+    return ms
+
+
+def terrain_kernel(packed, layout, state, inst_bytes, subset_size, flush):
+    """Phase 17: inst_trace on config 6's bounce rays (the waves=1 state
+    after its rounds, lane order as the render path feeds it, and sorted):
+    warm and cold ms, bit-equal to its plain version on a subset, and its
+    bound from the counted pops and triangles. The first scene whose
+    tables do not fit the 50 MB L2."""
+    import torch
+    from path_tracer_tpu_torch.core.constants import HIT_TIME_LIMIT
+    from path_tracer_tpu_torch.ops import trace_inst
+    from path_tracer_tpu_torch.ops.intersect import (
+        intersect_analytic, make_hit, ray_sort_key)
+    from path_tracer_tpu_torch.scene import bvh8
+
+    o, d = state['origin'], state['direction']
+    n = int(o.shape[1])
+    t_in = intersect_analytic(packed, layout, o, d,
+                              make_hit(n, HIT_TIME_LIMIT, o.device))['time']
+    perm = torch.argsort(ray_sort_key(packed, o, d), stable=True)
+    orders = {'lane': (o, d, t_in),
+              'sorted': (o[:, perm].contiguous(), d[:, perm].contiguous(),
+                         t_in[perm].contiguous())}
+    tables = (packed.inst_nodes, packed.inst_tris, packed.inst_rows)
+
+    def kernel(*rays, **kw):
+        return trace_inst.inst_trace(*tables, *rays, layout.tlas_rows, **kw)
+
+    gen = torch.Generator().manual_seed(1)
+    subset = torch.randperm(n, generator=gen)[:subset_size].to(o.device)
+    out = kernel(*orders['lane'])
+    *counted, counts = kernel(*orders['lane'], stats=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, counted)):
+        raise RuntimeError('inst_trace on config 6: the launch with counters '
+                           'gives other results')
+    sub = tuple(x[..., subset].contiguous() for x in orders['lane'])
+    max_err, agree = compare('inst_trace', 'terrain_bounce/' + bvh8.LEAF_FMT,
+                             [x[..., subset] for x in out],
+                             trace_inst.inst_trace_plain(
+                                 *tables, *sub, layout.tlas_rows))
+    ms = {k: cuda_ms(lambda: kernel(*r)) for k, r in orders.items()}
+    ms_cold = {k: cuda_ms(lambda: kernel(*r), flush=flush)
+               for k, r in orders.items()}
+    bound_ms, bound_by, nbytes, ops = kernel_bound(
+        counts, n, inst_bytes, 5, OPS_TRIANGLE[bvh8.LEAF_FMT])
+    per_ray = [c.float().mean().item() for c in counts]
+    rec = dict(ms=ms, ms_cold=ms_cold,
+               cold_over_warm={k: ms_cold[k] / ms[k] for k in ms},
+               bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
+               agreement=agree)
+    log('terrain_kernel', kernel='inst_trace', set='bounce', rays=n,
+        leaf_fmt=bvh8.LEAF_FMT, table_bytes=inst_bytes,
+        compulsory_bytes=nbytes, f32_ops=ops,
+        per_ray_interior_pops=per_ray[0], per_ray_leaf_pops=per_ray[1],
+        per_ray_leaf_rows=per_ray[2], per_ray_instance_entries=per_ray[3],
+        per_ray_triangles=per_ray[4],
+        hit_fraction=float((out[1] >= 0).float().mean()),
+        over_bound_lane=ms['lane'] / bound_ms, **rec)
+    return rec
+
+
+def resolve_determinism(state, width, height, repeats=8):
+    """Phase 18: resolve folds the slots of a pixel with index_add_, whose
+    float additions on the card may run in another order each time:
+    resolve the waves=4 state `repeats` times and report whether the
+    frames are equal bit for bit. Reported, not required."""
+    import torch
+    from path_tracer_tpu_torch.integrator.resolve import resolve
+
+    frames = [resolve(state['accum'], width, height, lane=state['lane'])
+              for _ in range(repeats)]
+    diffs = [(f - frames[0]).abs() for f in frames[1:]]
+    log('resolve_determinism', slots=int(state['lane'].numel()),
+        width=width, height=height, resolves=repeats,
+        bit_equal=all(bool(torch.equal(f, frames[0])) for f in frames[1:]),
+        pixels_differing=max(int((d > 0).any(-1).sum()) for d in diffs),
+        max_abs_diff=max(float(d.max()) for d in diffs))
+    if not all(bool(torch.isfinite(f).all()) for f in frames):
+        raise RuntimeError('the config 6 frame is not finite')
+
+
+def terrain_golden(dev, repo, packed, layout, launches, reset_launches,
+                   rounds=24):
+    """Config 6's golden frame (192x108, 24 rounds, seed 123, one wave),
+    rendered on the tables compiled in phase 14, within bench.py's bands;
+    inst_trace once a round."""
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.integrator.resolve import resolve
+
+    reset_launches()
+    state = wavefront.render(packed, wavefront.RenderConfig(width=192,
+                                                            height=108),
+                             rounds, seed=123, layout=layout)
+    img = resolve(state['accum'], 192, 108).cpu().numpy()
+    counted = launches()
+    rel, rel_lim, bias, bias_lim = check_golden('6_terrain_stream', img, repo)
+    log('golden', name='6_terrain_stream', packet_mode='inst', rel_err=rel,
+        rel_limit=rel_lim, bias=bias, bias_limit=bias_lim,
+        launches={k: v for k, v in counted.items() if v})
+    if any(v != (rounds if k == 'inst_trace' else 0)
+           for k, v in counted.items()):
+        raise RuntimeError(f'the 6_terrain_stream frame launched {counted}')
+    if not (rel < rel_lim and bias < bias_lim):
+        raise RuntimeError('the 6_terrain_stream golden frame is outside its '
+                           'bands')
+
+
+def checkpoint_phase(dev, repo, width, height, rounds=4, every=2):
+    """Phase 19: the viking hall at width x height through
+    render_resilient with one failure injected after the first
+    checkpoint, against the same render uninterrupted (bit for bit); the
+    checkpoint file loaded on the CPU; save and load ms and the file's
+    size."""
+    import torch
+    from path_tracer_tpu_torch.integrator.checkpoint import (
+        load_render_state, save_render_state)
+    from path_tracer_tpu_torch.scene.procedural import make_viking_hall_scene
+    from path_tracer_tpu_torch.utils.resilience import render_resilient
+
+    out_dir = os.path.join(repo, 'build', 'smoke')
+    os.makedirs(out_dir, exist_ok=True)
+    ckpt = os.path.join(out_dir, 'viking.npz')
+    for path in (ckpt, ckpt + '.rounds'):
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.perf_counter()
+    clean = render_resilient(make_viking_hall_scene(detail=1), width, height,
+                             rounds, seed=3, checkpoint_every=every,
+                             device=dev)
+    torch.cuda.synchronize()
+    clean_s = time.perf_counter() - t0
+    fired = []
+
+    def inject(done):
+        if done == every and not fired:
+            fired.append(done)
+            raise RuntimeError('injected failure after the first checkpoint')
+
+    t0 = time.perf_counter()
+    recovered = render_resilient(make_viking_hall_scene(detail=1), width,
+                                 height, rounds, seed=3,
+                                 checkpoint_path=ckpt, checkpoint_every=every,
+                                 device=dev, _inject_failure=inject)
+    torch.cuda.synchronize()
+    recovered_s = time.perf_counter() - t0
+    equal = tree_equal(clean, recovered)
+    on_card = recovered['accum']['xyz'].device.type == torch.device(dev).type
+
+    timed = os.path.join(out_dir, 'timed.npz')
+    t0 = time.perf_counter()
+    save_render_state(timed, recovered)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    back = load_render_state(timed, recovered, device=dev)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    on_cpu = load_render_state(ckpt, tree_map(lambda x: x.cpu(), recovered),
+                               device='cpu')
+    cpu_equal = tree_equal(on_cpu, tree_map(lambda x: x.cpu(), recovered))
+    log('checkpoint', scene='3_viking_hall', width=width, height=height,
+        rounds=rounds, checkpoint_every=every, failure_injected_at=fired,
+        resumed_equals_uninterrupted=equal, state_on_card=on_card,
+        checkpoint_loads_on_cpu_equal=cpu_equal,
+        file_mb=os.path.getsize(timed) / 1e6, save_ms=save_ms,
+        load_ms=load_ms, reloaded_equal=tree_equal(back, recovered),
+        uninterrupted_seconds=clean_s, recovered_seconds=recovered_s)
+    if not (fired and equal and on_card and cpu_equal
+            and tree_equal(back, recovered)):
+        raise RuntimeError('the resumed viking render differs from the '
+                           'uninterrupted one, or its checkpoint does not '
+                           'load on the CPU')
+
+
+def read_png(path):
+    """(H, W, 4) uint8 pixels of a PNG as utils/image.encode_png writes it:
+    8-bit RGBA, one IDAT stream, filter type 0 on every row."""
+    import struct
+    import zlib
+    import numpy as np
+    with open(path, 'rb') as f:
+        data = f.read()
+    if data[:8] != b'\x89PNG\r\n\x1a\n':
+        raise RuntimeError(f'{path} is not a PNG')
+    pos, idat, size = 8, b'', None
+    while pos < len(data):
+        (length,) = struct.unpack('>I', data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if tag == b'IHDR':
+            size = struct.unpack('>II', body[:8])
+        elif tag == b'IDAT':
+            idat += body
+        pos += 12 + length
+    w, h = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 4 * w)
+    if rows[:, 0].any():
+        raise RuntimeError(f'{path}: a row filter this reader does not decode')
+    return rows[:, 1:].reshape(h, w, 4)
+
+
+def cli_phase(repo, width=192, height=108, rounds=8):
+    """Phase 20: `python -m path_tracer_tpu_torch render <the reference
+    schema's scene file>` and `... demo cornell`, each a subprocess on the
+    card; each must exit 0 and write a PNG that is not black."""
+    out_dir = os.path.join(repo, 'build', 'smoke')
+    os.makedirs(out_dir, exist_ok=True)
+    fixture = os.path.join(repo, 'tests', 'fixtures', 'reference_scene',
+                           'scene.json')
+    size = ['--width', str(width), '--height', str(height),
+            '--rounds', str(rounds), '--device', 'cuda']
+    for name, args in (('render', ['render', fixture]),
+                       ('demo', ['demo', 'cornell'])):
+        png = os.path.join(out_dir, f'cli_{name}.png')
+        if os.path.exists(png):
+            os.remove(png)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'path_tracer_tpu_torch', *args, png, *size],
+            cwd=repo, capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        pixels = read_png(png) if os.path.exists(png) else None
+        mean = float(pixels[..., :3].mean()) if pixels is not None else None
+        log('cli', command=name, returncode=proc.returncode, seconds=seconds,
+            png_shape=None if pixels is None else list(pixels.shape),
+            mean_8bit=mean, stderr_tail=proc.stderr[-300:])
+        if proc.returncode != 0 or pixels is None or not (
+                pixels.shape == (height, width, 4) and mean > 1.0):
+            raise RuntimeError(f'the CLI {name} run failed or wrote a black '
+                               f'or missing PNG:\n{proc.stderr[-2000:]}')
+
+
+def session_phase(dev, card, launches, reset_launches, width, height):
+    """Phase 21: a Session on the viking hall at width x height: restart
+    and steady frame ms (inst_trace once a round), a material edit
+    through the incremental compile against a full compile (the same
+    frame bit for bit), preview ms in all seven modes, pick ms, and the
+    mesh-complexity heatmap, whose kernel counters equal the plain
+    version's on the card."""
+    import numpy as np
+    import torch
+    from path_tracer_tpu_torch.app import Session
+    from path_tracer_tpu_torch.core.constants import (
+        HIT_TIME_LIMIT, SHAPE_TYPE_MESH_INSTANCE)
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.integrator.resolve import resolve
+    from path_tracer_tpu_torch.ops import trace_inst
+    from path_tracer_tpu_torch.ops.intersect import trace
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+    from path_tracer_tpu_torch.scene.model import SCENE_DIRTY_MATERIALS
+    from path_tracer_tpu_torch.scene.procedural import make_viking_hall_scene
+    from path_tracer_tpu_torch.viewer import preview
+
+    t0 = time.perf_counter()
+    session = Session(make_viking_hall_scene(detail=1), width, height,
+                      device=dev)
+    torch.cuda.synchronize()
+    open_s = time.perf_counter() - t0
+    reset_launches()
+    steady_ms = host_ms(session.frame, reps=5)
+    steady_launches = launches()
+
+    def restart_frame():
+        session.move_camera(delta=(0.0, 0.0, 0.0))
+        return session.frame()
+
+    reset_launches()
+    restart_ms = host_ms(restart_frame, reps=3)
+    restart_launches = launches()
+    busy_ms, _, n_kernels = device_profile(session.frame)
+
+    # The JAX package's generic programs (Session's default) keep its
+    # program fixed under edits; here they only run every model's branch.
+    # The same frames with the specialized layout:
+    special = Session(make_viking_hall_scene(detail=1), width, height,
+                      generic_programs=False, device=dev)
+    special_ms = host_ms(special.frame, reps=5)
+    special_busy_ms, _, special_kernels = device_profile(special.frame)
+    special_restart_ms = host_ms(
+        lambda: (special.move_camera(), special.frame())[1], reps=3)
+    del special
+    if (steady_launches['inst_trace'] != 6 or restart_launches['inst_trace'] != 8
+            or any(v for k, v in {**steady_launches, **restart_launches}.items()
+                   if k != 'inst_trace')):
+        raise RuntimeError(f'Session frames launched {steady_launches} / '
+                           f'{restart_launches}')
+
+    # A material edit: the incremental compile against a full one.
+    scene = session.scene
+    t0 = time.perf_counter()
+    scene.materials[0].base_color = np.asarray([0.8, 0.3, 0.2], np.float32)
+    scene.mark_dirty(SCENE_DIRTY_MATERIALS)
+    frame = session.frame()
+    torch.cuda.synchronize()
+    edit_ms = 1e3 * (time.perf_counter() - t0)
+    fresh = make_viking_hall_scene(detail=1)
+    fresh.compile_generic = True
+    fresh.materials[0].base_color = np.asarray([0.8, 0.3, 0.2], np.float32)
+    t0 = time.perf_counter()
+    full = compile_scene(fresh, aspect_ratio=width / height, device=dev)
+    full_compile_ms = 1e3 * (time.perf_counter() - t0)
+    states = [wavefront.render(pk, session.config, 2, seed=session._seed)
+              for pk in (session.packed, full)]
+    images = [resolve(st['accum'], width, height, lane=st['lane'])
+              for st in states]
+    edit_equal = bool(torch.equal(*images)) and bool(torch.equal(
+        images[0], frame))
+    del states, full
+
+    world = session.camera_world()
+    preview_ms = {}
+    for mode in range(7):
+        preview_ms[mode] = host_ms(lambda: session.preview(mode=mode))
+    pick_ms = host_ms(lambda: session.pick(width // 2, height // 2), reps=5)
+    picked = session.pick(width // 2, height // 2)
+
+    # The heatmap: the kernel's per-ray counters against the plain
+    # version's, on the card, on the preview's primary rays.
+    reset_launches()
+    heat = session.preview(mode=preview.PREVIEW_RENDER_MODE_MESH_COMPLEXITY)
+    torch.cuda.synchronize()
+    heat_launches = launches()
+    cam = torch.as_tensor(world, device=dev)
+    origin, direction = preview._preview_rays(width, height, cam)
+    t_in = torch.full((width * height,), HIT_TIME_LIMIT, device=dev)
+    tables = (session.packed.inst_nodes, session.packed.inst_tris,
+              session.packed.inst_rows)
+    *out, stats = trace_inst.inst_trace(*tables, origin, direction, t_in,
+                                        session.layout.tlas_rows, stats=True)
+    *plain_out, plain_stats = trace_inst.inst_trace_plain(
+        *tables, origin, direction, t_in, session.layout.tlas_rows, stats=True)
+    counters_equal = bool(torch.equal(stats, plain_stats)) and all(
+        torch.equal(a, b) for a, b in zip(out, plain_out))
+    hit = trace(session.packed, session.layout, origin, direction)
+    mesh = (hit['shape_type'] == SHAPE_TYPE_MESH_INSTANCE).reshape(height, width)
+    green = heat[..., 1]
+    log('session', scene='3_viking_hall', width=width, height=height,
+        open_seconds=open_s, steady_frame_ms=steady_ms,
+        restart_frame_ms=restart_ms,
+        steady_frame_device_busy_ms=busy_ms, steady_frame_kernels=n_kernels,
+        specialized_steady_frame_ms=special_ms,
+        specialized_restart_frame_ms=special_restart_ms,
+        specialized_device_busy_ms=special_busy_ms,
+        specialized_kernels=special_kernels, launches_steady=steady_launches,
+        launches_restart=restart_launches, material_edit_frame_ms=edit_ms,
+        full_compile_ms=full_compile_ms, edit_frame_equals_full_compile=edit_equal,
+        preview_ms=preview_ms, pick_ms=pick_ms, picked_shape=picked,
+        heatmap_launches=heat_launches, mesh_pixels=int(mesh.sum()),
+        heat_min_on_mesh=float(green[mesh].min()) if bool(mesh.any()) else None,
+        heat_mean=float(green.mean()), counters_equal_plain=counters_equal,
+        per_ray_pops=float((stats[0] + stats[1]).float().mean()), card=card)
+    if not (edit_equal and counters_equal and bool(mesh.any())
+            and float(green[mesh].min()) > 0.0
+            and heat_launches['inst_trace'] == 2 and picked >= -1):
+        raise RuntimeError('Session: the incremental frame differs from the '
+                           'full compile, the heatmap is empty on the mesh, '
+                           'or the counters differ from the plain version')
+    return steady_launches['inst_trace'] + restart_launches['inst_trace']
+
+
 def main():
     import numpy as np
     import torch
@@ -506,6 +1045,8 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log('card', nvidia_smi=card, torch=torch.__version__,
         cuda=torch.version.cuda, devices=torch.cuda.device_count())
+    started = time.perf_counter()
+    lap = phase_clock()
 
     # -- 2. build -------------------------------------------------------
     ptxas = start_ptxas(build.CSRC, build.NVCC_FLAGS, build.BUILD_DIR)
@@ -514,6 +1055,7 @@ def main():
     log('build', seconds=time.perf_counter() - t0, ninja=shutil.which('ninja'),
         sources=sorted(os.listdir(build.CSRC)))
     read_ptxas(ptxas)
+    lap('build')
 
     # -- 3. compile the flagship scene: both modes, three leaf formats ---
     def nbytes(*tables):
@@ -558,6 +1100,7 @@ def main():
                 wide_face_slots=layout.wide_face_slots)
     packed, layout = packs[bvh8.LEAF_FMT]
     flat, flat_layout = flats[bvh8.LEAF_FMT]
+    lap('compile')
     config = wavefront.RenderConfig(width=WIDTH, height=HEIGHT)
 
     # -- 4. each kernel against its plain version -------------------------
@@ -717,6 +1260,7 @@ def main():
                 del out, counts
         if set_name == 'bounce':
             bounce_rays = rays
+    lap('kernels')
 
     # -- 5. the three kernels against one another --------------------------
     # wide_trace sits on no branch of `trace`: this direct call on the flat
@@ -747,6 +1291,7 @@ def main():
         raise RuntimeError('the three kernels disagree on the bounce rays')
     records['wide_trace']['launches'] = direct_launches['wide_trace']
     del hits, masks, ts, ray_sets
+    lap('cross_check')
 
     # -- 6, 7. the two paths end to end -------------------------------------
     def render_path(mode, pk, lay, kernel_name):
@@ -812,7 +1357,9 @@ def main():
         return state
 
     render_path('inst', packed, layout, 'inst_trace')
+    lap('render_inst')
     state = render_path('flat', flat, flat_layout, 'wide_trace5')
+    lap('render_flat')
 
     # -- 8. the portable BVH2 traversal -----------------------------------
     o, d = (state[k][:, subset].contiguous() for k in ('origin', 'direction'))
@@ -835,6 +1382,7 @@ def main():
                       ).float().mean().item())
     if not (shape_agreement > 0.995 and t_agreement > 0.999):
         raise RuntimeError('the portable traversal disagrees with wide_trace5')
+    lap('portable')
 
     # -- 9. golden frame, both modes ----------------------------------------
     for mode in ('inst', 'flat'):
@@ -850,6 +1398,7 @@ def main():
                 or not (rel < rel_lim and bias < bias_lim)):
             raise RuntimeError(f"the '{mode}' viking golden frame is outside "
                                'its bands')
+    lap('golden_viking')
 
     # -- 10. diffuse + metal, both modes ----------------------------------------
     frames = {}
@@ -872,18 +1421,67 @@ def main():
             and rel < 0.02 and bias < 0.02):
         raise RuntimeError('the diffuse + metal frames are black, not finite '
                            'or differ between the two modes')
+    lap('metal')
 
     # -- 11. bench config 5 at 3840x2160: media and nested dielectrics -------
     del packs, flats, packed, flat, bounce_rays, flush, flush_buffer
     torch.cuda.empty_cache()
     records['inst_trace']['launches_media_render'] = media_render(
         dev, card, launches, reset_launches, MEDIA_WIDTH, MEDIA_HEIGHT)
+    lap('media_render')
 
     # -- 12. golden frames of bench configs 1, 2, 4 and 5 --------------------
     bench_goldens(dev, repo, flat_mode, launches, reset_launches)
+    lap('bench_goldens')
 
     # -- 13. the OpenPBR scene, card against CPU ------------------------------
     openpbr_card_vs_cpu(dev)
+    lap('openpbr')
+
+    # -- 14-18. bench config 6 at 1920x1080 with 1 and 4 waves ----------------
+    torch.cuda.empty_cache()
+    terrain, terrain_layout, inst_bytes = terrain_compile(dev, WIDTH, HEIGHT)
+    lap('terrain_compile')
+    state, waves1 = terrain_render(dev, card, terrain, terrain_layout,
+                                   launches, reset_launches, WIDTH, HEIGHT,
+                                   waves=1)
+    flush_buffer = torch.empty(96 * 2**20, dtype=torch.float32, device=dev)
+    config6 = terrain_kernel(terrain, terrain_layout, state, inst_bytes,
+                             SUBSET, flush_buffer.zero_)
+    del state, flush_buffer
+    lap('terrain_waves1_and_kernel')
+    state, waves4 = terrain_render(dev, card, terrain, terrain_layout,
+                                   launches, reset_launches, WIDTH, HEIGHT,
+                                   waves=4)
+    terrain_sort(terrain, terrain_layout, state)
+    resolve_determinism(state, WIDTH, HEIGHT)
+    del state
+    lap('terrain_waves4')
+    terrain_golden(dev, repo, terrain, terrain_layout, launches, reset_launches)
+    del terrain
+    torch.cuda.empty_cache()
+    lap('terrain_golden')
+    records['inst_trace']['config6'] = dict(
+        ms_lane=config6['ms']['lane'], ms_cold_lane=config6['ms_cold']['lane'],
+        ms_sorted=config6['ms']['sorted'],
+        ms_cold_sorted=config6['ms_cold']['sorted'],
+        bound_ms=config6['bound_ms'], bound_by=config6['bound_by'],
+        max_abs_err=config6['max_abs_err'], launches_waves1=waves1,
+        launches_waves4=waves4)
+
+    # -- 19. checkpoint and recovery at 1920x1080 -----------------------------
+    checkpoint_phase(dev, repo, WIDTH, HEIGHT)
+    lap('checkpoint')
+
+    # -- 20. the CLI in subprocesses on the card ------------------------------
+    cli_phase(repo)
+    lap('cli')
+
+    # -- 21. the interactive Session, preview and picking ---------------------
+    records['inst_trace']['launches_session_frames'] = session_phase(
+        dev, card, launches, reset_launches, SESSION_WIDTH, SESSION_HEIGHT)
+    lap('session')
+    log('total', seconds=time.perf_counter() - started)
 
     print(card)
     sources = dict(

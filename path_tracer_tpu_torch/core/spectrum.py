@@ -29,6 +29,15 @@ XYZ_TO_SRGB = np.array(
     dtype=np.float32,
 )
 
+SRGB_TO_XYZ = np.array(
+    [
+        [+0.4124, +0.3576, +0.1805],
+        [+0.2126, +0.7152, +0.0722],
+        [+0.0193, +0.1192, +0.9505],
+    ],
+    dtype=np.float32,
+)
+
 
 def sample_standard_observer(lam):
     """CIE 1931 observer (Wyman et al. multi-lobe fit) at wavelengths
@@ -51,6 +60,17 @@ def sample_standard_observer(lam):
     return torch.stack([x, y, z], dim=0)
 
 
+def sample_illuminant_d65(normalized_lambda):
+    """Interpolated D65 power at normalized wavelength(s) in [0, 1]
+    (SampleIlluminantD65, spectrum.glsl.inc:159-164)."""
+    nl = torch.as_tensor(normalized_lambda, dtype=torch.float32)
+    offset = nl * 470.0
+    idx = torch.clamp(offset.to(torch.int32), 0, 469).long()
+    frac = offset - idx.to(torch.float32)
+    table = torch.as_tensor(_D65_TABLE, device=nl.device)
+    return table[idx] * (1.0 - frac) + table[idx + 1] * frac
+
+
 def sample_parametric_spectrum(beta, lam):
     """Sigmoid-polynomial reflectance spectrum (Jakob-Hanika).
 
@@ -67,10 +87,41 @@ def sample_parametric_spectrum_scaled(beta_and_intensity, lam):
     return b[3] * sample_parametric_spectrum(b[:3], lam)
 
 
+def observe_parametric_spectrum_under_d65(beta_and_intensity, sample_count=16):
+    """XYZ response of a parametric spectrum under D65, with the
+    reference's quadrature of `sample_count` samples
+    (ObserveParametricSpectrumUnderD65, spectrum.glsl.inc:197-210).
+    beta_and_intensity: (3, ...) or (4, ...) with an intensity last.
+    Returns (3, ...) XYZ."""
+    b = torch.as_tensor(beta_and_intensity, dtype=torch.float32)
+    if b.shape[0] == 4:
+        intensity, beta = b[3], b[:3]
+    else:
+        intensity, beta = torch.ones(b.shape[1:], device=b.device), b
+    nl = torch.linspace(0.0, 1.0, sample_count, dtype=torch.float32,
+                        device=b.device)
+    delta = (CIE_LAMBDA_MAX - CIE_LAMBDA_MIN) / sample_count
+    lam = CIE_LAMBDA_MIN + (CIE_LAMBDA_MAX - CIE_LAMBDA_MIN) * nl
+    d65 = sample_illuminant_d65(nl) / D65_NORMALIZATION          # (S,)
+    obs = sample_standard_observer(lam)                          # (3, S)
+    extra = (1,) * (beta.ndim - 1)
+    lam_b = lam.reshape((sample_count,) + extra)                 # (S, 1...)
+    refl = sample_parametric_spectrum(beta[:, None], lam_b)      # (S, ...)
+    weight = (d65 * delta).reshape((sample_count,) + extra)
+    xyz = torch.tensordot(obs, refl * weight, dims=([1], [0]))   # (3, ...)
+    return xyz * intensity
+
+
 def xyz_to_srgb(xyz):
     """CIE XYZ -> linear sRGB; xyz: (3, ...)."""
     m = torch.as_tensor(XYZ_TO_SRGB, device=xyz.device)
     return torch.tensordot(m, xyz, dims=([1], [0]))
+
+
+def srgb_to_xyz(rgb):
+    """Linear sRGB -> CIE XYZ; rgb: (3, ...)."""
+    m = torch.as_tensor(SRGB_TO_XYZ, device=rgb.device)
+    return torch.tensordot(m, rgb, dims=([1], [0]))
 
 
 def hero_wavelength_cluster(normalized_lambda0):

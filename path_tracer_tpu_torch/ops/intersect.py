@@ -23,6 +23,8 @@ from ..core.constants import (
     EPSILON,
     HIT_TIME_LIMIT,
     INFINITY,
+    MATERIAL_TYPE_BASIC_DIFFUSE,
+    MATERIAL_TYPE_BASIC_METAL,
     MATERIAL_TYPE_BASIC_TRANSLUCENT,
     MATERIAL_TYPE_OPENPBR,
     PI,
@@ -134,8 +136,15 @@ def _filter_modes(nearest_flags):
 
 def build_layout_host(scene, packed):
     """SceneLayout from the host-side scene document (mirrors the JAX
-    package's build_layout_host for specialized programs; the generic
-    programs of interactive sessions are not ported)."""
+    package's build_layout_host).
+
+    scene.compile_generic (set by app.Session) gives the JAX package's
+    generic programs: every analytic type with a bucket-padded group,
+    all four material models, every texturable attribute and both
+    filters, and the conservative scatter flags. The JAX package keeps
+    its program structure fixed under edits that way; here it only
+    selects which branches run, and the specialization test of
+    tests/test_torch_media.py shows such flags change no result."""
     from ..scene.atlas import choose_atlas_size
     from ..scene.compile import _ENTITY_TO_SHAPE_TYPE, _bucket, entity_packs_shape
 
@@ -155,7 +164,16 @@ def build_layout_host(scene, packed):
         mat_types.add(int(entity.material.type) if entity.material is not None
                       else MATERIAL_TYPE_OPENPBR)
         index += 1
-    analytic = tuple(sorted((t, len(idxs)) for t, idxs in by_type.items()))
+    generic = bool(getattr(scene, 'compile_generic', False))
+    if generic:
+        for t in (SHAPE_TYPE_PLANE, SHAPE_TYPE_SPHERE, SHAPE_TYPE_CUBE):
+            by_type.setdefault(int(t), [])
+        mat_types |= {MATERIAL_TYPE_BASIC_DIFFUSE, MATERIAL_TYPE_BASIC_METAL,
+                      MATERIAL_TYPE_BASIC_TRANSLUCENT, MATERIAL_TYPE_OPENPBR}
+    # The group sizes of compile.py's analytic tables.
+    analytic = tuple(sorted(
+        (t, _bucket(len(idxs)) if generic else max(len(idxs), 1))
+        for t, idxs in by_type.items()))
     slots = 0 if i_real == 0 else 1 if i_real == 1 else _bucket(i_real)
 
     attr_fields = dict(
@@ -170,6 +188,8 @@ def build_layout_host(scene, packed):
         for attr, fields in attr_fields.items():
             if any(getattr(material, f, None) is not None for f in fields):
                 textured_set.add(attr)
+    if generic:
+        textured_set = set(attr_fields)
     packet_mode = getattr(scene, 'packet_mode', 'flat')
     leaf_table = (packed.inst_tris if packet_mode == 'inst'
                   else packed.wide_tris_g)
@@ -179,22 +199,23 @@ def build_layout_host(scene, packed):
         tlas_rows=getattr(scene, 'packet_tlas_rows', 0),
         wide_face_slots=int(leaf_table.shape[0]) * 8,
         has_skybox_texture=scene.root.skybox_texture is not None,
-        materials_textured=bool(textured_set),
+        materials_textured=bool(textured_set) or generic,
         textured_attrs=tuple(sorted(textured_set)),
         atlas_size=choose_atlas_size([t for t in scene.textures
                                       if t.pixels is not None]),
-        texture_filter_modes=_filter_modes(
+        texture_filter_modes=(True, True) if generic else _filter_modes(
             [t.enable_nearest_filtering for t in scene.textures
              if t.pixels is not None]),
         atlas_quad_fit=('quad' if packed.atlas_quad.shape[0] > 1 else
                         'pair' if packed.atlas_pair.shape[0] > 1 else False),
-        has_opacity=any(getattr(m, 'opacity', 1.0) < 1.0
-                        for m in scene.materials),
+        has_opacity=generic or any(getattr(m, 'opacity', 1.0) < 1.0
+                                   for m in scene.materials),
         material_types=tuple(sorted(mat_types)),
-        scene_has_medium=_types_have_medium(mat_types)
+        scene_has_medium=generic or _types_have_medium(mat_types)
         or float(scene.root.scatter_rate) > 0.0,
-        has_skybox_sampling=float(scene.root.skybox_sampling_probability) > 0.0,
-        has_transmissive=_types_have_medium(mat_types),
+        has_skybox_sampling=generic or float(
+            scene.root.skybox_sampling_probability) > 0.0,
+        has_transmissive=generic or _types_have_medium(mat_types),
     )
 
 
@@ -207,6 +228,9 @@ def make_hit(n, duration, device):
         primitive=torch.zeros((n,), dtype=torch.int32, device=device),
         # Shape-dependent primitive coordinates (local position).
         coords=torch.zeros((3, n), dtype=torch.float32, device=device),
+        # Traversal-cost counter for the preview heatmaps (the reference's
+        # SceneComplexity/MeshComplexity, scene.glsl.inc:115-118).
+        complexity=torch.zeros((n,), dtype=torch.int32, device=device),
     )
 
 
@@ -298,6 +322,8 @@ def intersect_analytic(packed, layout: SceneLayout, origin, direction, hit):
         primitive=torch.where(improved, torch.zeros_like(hit['primitive']),
                               hit['primitive']),
         coords=local,
+        # Every ray tests every (padded) slot of every group.
+        complexity=hit['complexity'] + sum(k for _, k in layout.analytic_buckets),
     )
 
 
@@ -349,7 +375,9 @@ def traverse_mesh_bvh(packed, root, origin, direction, hit, shape_index):
     its nearer child and pushes the farther one. `root` may be the
     degenerate root of a padded instance slot, whose inverted bounds no
     ray enters. Returns the updated hit record; mesh hits carry their
-    barycentrics in `coords` and the BVH2 face in `primitive`.
+    barycentrics in `coords` and the BVH2 face in `primitive`, and every
+    ray's `complexity` grows by the nodes it visited (the iterations in
+    which it held a node).
     """
     dev = origin.device
     n = origin.shape[1]
@@ -364,6 +392,7 @@ def traverse_mesh_bvh(packed, root, origin, direction, hit, shape_index):
     u = hit['coords'][1].clone()
     v = hit['coords'][2].clone()
     found = torch.zeros(n, dtype=torch.bool, device=dev)
+    complexity = hit['complexity'].clone()
 
     root = int(root)
     root_entry = intersect_aabb(origin, inv_dir, time,
@@ -378,6 +407,7 @@ def traverse_mesh_bvh(packed, root, origin, direction, hit, shape_index):
         act = torch.nonzero((node >= 0) | (depth > 0)).squeeze(1)
         if act.numel() == 0:
             break
+        complexity[act] += 1
         cur, dep = node[act], depth[act]
         pop = cur < 0
         dep = torch.where(pop, dep - 1, dep)
@@ -442,6 +472,7 @@ def traverse_mesh_bvh(packed, root, origin, direction, hit, shape_index):
             hit['shape_type']),
         primitive=torch.where(found, primitive, hit['primitive']),
         coords=torch.where(found, coords, hit['coords']),
+        complexity=complexity,
     )
 
 
@@ -541,6 +572,8 @@ def resolve_hit_attributes(packed, layout: SceneLayout, origin, direction, hit):
         tangent=tangent,
         bitangent=bitangent,
         uv=uv,
+        complexity=hit.get('complexity', torch.zeros(
+            n, dtype=torch.int32, device=origin.device)),
     )
 
 
@@ -617,6 +650,10 @@ def trace(packed, layout: SceneLayout, origin, direction,
             # Face slot into the trace tables.
             primitive=torch.where(improved, face, hit['primitive']),
             coords=hit['coords'],
+            # The kernels' own per-ray counters are not read here: no
+            # render round launches the counting instantiation (nor does
+            # the JAX package's trace). viewer/preview.py reads them.
+            complexity=hit['complexity'],
             mesh_normal=torch.where(improved, safe_normalize(normal),
                                     torch.zeros_like(normal)),
             mesh_uv=torch.where(improved, uv, torch.zeros_like(uv)),

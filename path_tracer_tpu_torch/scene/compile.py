@@ -6,12 +6,16 @@ builders, same table layouts), and only its last step differs: the
 arrays become a `PackedScene` dataclass of torch tensors on the
 requested device instead of a JAX pytree.
 
-Not carried over from the JAX compile (see ROADMAP.md):
-  * the VMEM-driven leaf-row reorder (`_order_streamed_leaf_rows`): it
-    permutes leaf rows by a TPU residency heuristic and changes no hit;
-  * incremental recompilation from a previous PackedScene (every call
-    compiles the whole scene; the per-mesh wide-table memo still makes
-    a recompile skip the BVH builds).
+A recompile from a previous PackedScene (`compile_scene(scene, prev)`)
+follows the JAX package's dirty-flag cascade (PackSceneData,
+scene.cpp:1115-1621): each stage whose flag is set is recomputed in
+numpy and moved to the device, and every other stage reuses `prev`'s
+tensors as they are. The per-mesh wide-table memo makes a shape-stage
+recompile skip the BVH builds of unchanged meshes.
+
+Not carried over from the JAX compile (see ROADMAP.md): the VMEM-driven
+leaf-row reorder (`_order_streamed_leaf_rows`); it permutes leaf rows by
+a TPU residency heuristic and changes no hit.
 """
 
 from __future__ import annotations
@@ -48,6 +52,14 @@ from .model import (
     ENTITY_TYPE_MESH_INSTANCE,
     ENTITY_TYPE_PLANE,
     ENTITY_TYPE_SPHERE,
+    SCENE_DIRTY_ALL,
+    SCENE_DIRTY_CAMERAS,
+    SCENE_DIRTY_GLOBALS,
+    SCENE_DIRTY_MATERIALS,
+    SCENE_DIRTY_MESHES,
+    SCENE_DIRTY_SHAPES,
+    SCENE_DIRTY_SKYBOX_TEXTURE,
+    SCENE_DIRTY_TEXTURES,
     OpenPBRMaterial,
     Scene,
 )
@@ -752,9 +764,16 @@ def _pack_shapes(scene, out):
     for i, t in enumerate(shape_type[:s]):
         if t != SHAPE_TYPE_MESH_INSTANCE and t != SHAPE_TYPE_NONE:
             by_type.setdefault(int(t), []).append(i)
+    # Generic programs (scene.compile_generic, set by app.Session): every
+    # analytic type gets a group, padded to its bucket, as in the JAX
+    # package; padded slots are invalid and never hit.
+    generic = bool(getattr(scene, 'compile_generic', False))
+    if generic:
+        for t in (SHAPE_TYPE_PLANE, SHAPE_TYPE_SPHERE, SHAPE_TYPE_CUBE):
+            by_type.setdefault(int(t), [])
     a_idx, a_valid = {}, {}
     for t, idxs in sorted(by_type.items()):
-        k_pad = max(len(idxs), 1)
+        k_pad = _bucket(len(idxs)) if generic else max(len(idxs), 1)
         arr = np.zeros(k_pad, np.int32)
         arr[:len(idxs)] = idxs
         val = np.zeros(k_pad, np.float32)
@@ -864,38 +883,67 @@ def _pack_cameras(scene, aspect_ratio):
     )
 
 
-def _pack_globals(scene):
+def _pack_skybox(scene):
     skybox = scene.root.skybox_texture
     if skybox is not None and skybox.pixels is not None:
         mean, concentration = _fit_skybox_vmf(np.asarray(skybox.pixels, np.float32))
-        out = dict(skybox_mean_direction=mean,
-                   skybox_concentration=np.asarray(concentration, np.float32),
-                   skybox_texture_index=np.asarray(skybox.packed_texture_index, np.int32))
-    else:
-        out = dict(skybox_mean_direction=np.asarray([0.0, 0.0, 1.0], np.float32),
-                   skybox_concentration=np.asarray(0.0, np.float32),
-                   skybox_texture_index=np.asarray(TEXTURE_INDEX_NONE, np.int32))
-    out.update(
+        return dict(skybox_mean_direction=mean,
+                    skybox_concentration=np.asarray(concentration, np.float32),
+                    skybox_texture_index=np.asarray(skybox.packed_texture_index, np.int32))
+    return dict(skybox_mean_direction=np.asarray([0.0, 0.0, 1.0], np.float32),
+                skybox_concentration=np.asarray(0.0, np.float32),
+                skybox_texture_index=np.asarray(TEXTURE_INDEX_NONE, np.int32))
+
+
+def _pack_globals(scene):
+    return dict(
         skybox_sampling_probability=np.asarray(scene.root.skybox_sampling_probability, np.float32),
         skybox_brightness=np.asarray(scene.root.skybox_brightness, np.float32),
         scene_scatter_rate=np.asarray(scene.root.scatter_rate, np.float32),
     )
-    return out
 
 
-def compile_numpy(scene: Scene, aspect_ratio=2.0, spectrum_table=None):
-    """The whole host compile: {field: numpy array} (materials as a
-    nested dict of columns, analytic groups as {type: array}). The atlas
-    pair table is float32 here; `packed_from_numpy` stores it as bf16."""
-    table = spectrum_table if spectrum_table is not None else uplift.get_table()
-    out = _pack_textures(scene, table)
-    out['materials'] = _pack_materials(scene, table)
-    out.update(_pack_meshes(scene))
-    _pack_shapes(scene, out)
-    out.update(_pack_cameras(scene, aspect_ratio))
-    out.update(_pack_globals(scene))
+def _compile_stages(scene: Scene, dirty, aspect_ratio, table):
+    """The host compile: {field: numpy array} of the stages that `dirty`
+    selects (materials as a nested dict of columns, analytic groups as
+    {type: array}, the atlas pair table in float32), with the JAX
+    package's cascade: textures dirty the materials and the skybox,
+    materials and meshes the shapes, shapes and the skybox the globals."""
+    out = {}
+    if dirty & SCENE_DIRTY_TEXTURES:
+        out.update(_pack_textures(scene, table))
+        dirty |= SCENE_DIRTY_MATERIALS | SCENE_DIRTY_SKYBOX_TEXTURE
+    if dirty & SCENE_DIRTY_MATERIALS:
+        out['materials'] = _pack_materials(scene, table)
+        dirty |= SCENE_DIRTY_SHAPES
+    if dirty & SCENE_DIRTY_MESHES:
+        out.update(_pack_meshes(scene))
+        dirty |= SCENE_DIRTY_SHAPES
+    if dirty & SCENE_DIRTY_SHAPES:
+        _pack_shapes(scene, out)
+        dirty |= SCENE_DIRTY_GLOBALS
+    if dirty & SCENE_DIRTY_CAMERAS:
+        out.update(_pack_cameras(scene, aspect_ratio))
+    if dirty & SCENE_DIRTY_SKYBOX_TEXTURE:
+        out.update(_pack_skybox(scene))
+        dirty |= SCENE_DIRTY_GLOBALS
+    if dirty & SCENE_DIRTY_GLOBALS:
+        out.update(_pack_globals(scene))
     scene.dirty_flags = 0
     return out
+
+
+def _field_tensor(name, value, device):
+    """One PackedScene field from its numpy form, on `device`."""
+    if name == 'materials':
+        return MaterialTable(**{
+            f.name: _tensor(np.asarray(value[f.name]), device)
+            for f in dataclasses.fields(MaterialTable)})
+    if name in ('analytic_idx', 'analytic_valid'):
+        return {int(k): _tensor(np.asarray(v), device) for k, v in value.items()}
+    if name == 'atlas_pair':
+        return _tensor(np.asarray(value, np.float32), device).to(torch.bfloat16)
+    return _tensor(np.asarray(value), device)
 
 
 def packed_from_numpy(fields, layout_fields=None, device='cuda'):
@@ -909,22 +957,8 @@ def packed_from_numpy(fields, layout_fields=None, device='cuda'):
     field: value}; when given, the SceneLayout is attached as
     `host_layout` (unknown keys are ignored).
     """
-    names = {f.name for f in dataclasses.fields(PackedScene)}
-    kw = {}
-    for name in names:
-        value = fields[name]
-        if name == 'materials':
-            kw[name] = MaterialTable(**{
-                f.name: _tensor(np.asarray(value[f.name]), device)
-                for f in dataclasses.fields(MaterialTable)})
-        elif name in ('analytic_idx', 'analytic_valid'):
-            kw[name] = {int(k): _tensor(np.asarray(v), device)
-                        for k, v in value.items()}
-        elif name == 'atlas_pair':
-            kw[name] = _tensor(np.asarray(value, np.float32), device).to(torch.bfloat16)
-        else:
-            kw[name] = _tensor(np.asarray(value), device)
-    packed = PackedScene(**kw)
+    packed = PackedScene(**{f.name: _field_tensor(f.name, fields[f.name], device)
+                            for f in dataclasses.fields(PackedScene)})
     if layout_fields is not None:
         from ..ops.intersect import SceneLayout
         known = {f.name for f in dataclasses.fields(SceneLayout)}
@@ -933,19 +967,37 @@ def packed_from_numpy(fields, layout_fields=None, device='cuda'):
     return packed
 
 
-def compile_scene(scene: Scene, aspect_ratio=2.0, spectrum_table=None,
-                  device='cuda') -> PackedScene:
-    """Compile the scene into a PackedScene of tensors on `device`.
+def compile_scene(scene: Scene, prev: PackedScene = None, aspect_ratio=2.0,
+                  spectrum_table=None, *, device='cuda') -> PackedScene:
+    """Compile (or incrementally recompile) the scene into a PackedScene
+    of tensors on `device`.
 
-    `aspect_ratio` feeds pinhole sensor sizing. The SceneLayout built
-    from the host document rides along as `packed.host_layout`, and the
-    cameras' models as `packed.host_camera_models`.
+    With `prev`, only the stages that the scene's dirty flags select are
+    recomputed; the others keep `prev`'s tensors (the same objects).
+    `prev` must live on `device`. `aspect_ratio` feeds pinhole sensor
+    sizing. The SceneLayout built from the host document rides along as
+    `packed.host_layout`, and the cameras' models as
+    `packed.host_camera_models`; both are rebuilt on every call.
     """
     from ..ops.intersect import build_layout_host
 
-    with log.timer('compile.pack'):
-        fields = compile_numpy(scene, aspect_ratio, spectrum_table)
-    packed = packed_from_numpy(fields, device=device)
+    device = torch.device(device)
+    if prev is not None:
+        have = prev.camera_model.device
+        if have.type != device.type or (
+                device.index is not None and have.index != device.index):
+            raise ValueError(f'compile_scene: prev lives on {have}, not on '
+                             f'{device}; recompile without prev')
+    dirty = scene.dirty_flags if prev is not None else SCENE_DIRTY_ALL
+    table = spectrum_table if spectrum_table is not None else uplift.get_table()
+    with log.timer('compile.pack', dirty=int(dirty),
+                   incremental=prev is not None):
+        fields = _compile_stages(scene, dirty, aspect_ratio, table)
+    out = {} if prev is None else {f.name: getattr(prev, f.name)
+                                   for f in dataclasses.fields(PackedScene)}
+    out.update({name: _field_tensor(name, value, device)
+                for name, value in fields.items()})
+    packed = PackedScene(**out)
     packed.host_layout = build_layout_host(scene, packed)
     packed.host_camera_models = tuple(
         int(e.camera_model) for e in scene.walk_entities()

@@ -96,6 +96,54 @@ def test_spectrum_functions():
                                rtol=RTOL, atol=ATOL)
 
 
+def test_d65_table_interpolation():
+    """tests/test_spectrum.py's nodes and midpoint, and the JAX package's
+    values over the whole range, bit for bit."""
+    from path_tracer_tpu_torch.core.constants import CIE_LAMBDA_MAX, CIE_LAMBDA_MIN
+    d65 = tspectrum.sample_illuminant_d65
+    assert np.isclose(float(d65(0.0)), 46.638, atol=1e-3)
+    nl_560 = (560.0 - CIE_LAMBDA_MIN) / (CIE_LAMBDA_MAX - CIE_LAMBDA_MIN)
+    assert np.isclose(float(d65(nl_560)), 100.0, atol=1e-3)
+    nl = (360.5 - CIE_LAMBDA_MIN) / (CIE_LAMBDA_MAX - CIE_LAMBDA_MIN)
+    assert np.isclose(float(d65(nl)), (46.638 + 47.183) / 2, atol=1e-3)
+    grid = np.linspace(0.0, 1.0, 4097, dtype=np.float32)
+    np.testing.assert_array_equal(d65(torch.from_numpy(grid)).numpy(),
+                                  np.asarray(jspectrum.sample_illuminant_d65(grid)))
+
+
+def test_xyz_srgb_roundtrip():
+    """srgb_to_xyz against the JAX package's, and the round trip through
+    the reference's 4-decimal matrices (inexact inverses: ~1.5e-2)."""
+    rgb = np.random.RandomState(0).rand(3, 100).astype(np.float32)
+    xyz = tspectrum.srgb_to_xyz(torch.from_numpy(rgb))
+    np.testing.assert_allclose(xyz.numpy(), np.asarray(jspectrum.srgb_to_xyz(rgb)),
+                               rtol=RTOL, atol=ATOL)
+    back = tspectrum.xyz_to_srgb(xyz).numpy()
+    np.testing.assert_allclose(back, rgb, atol=2e-2)
+
+
+@pytest.mark.parametrize('samples', [16, 471])
+def test_observe_parametric_spectrum_under_d65(samples):
+    """A flat unit spectrum observes to the D65 white point, and random
+    spectra (with and without an intensity row) to the JAX package's XYZ."""
+    white = tspectrum.observe_parametric_spectrum_under_d65(
+        torch.tensor([0.0, 0.0, 1e6]), sample_count=samples).numpy()
+    if samples == 471:
+        assert np.isclose(white[1], 1.0, atol=0.02)
+        chroma = white / white.sum()
+        assert np.isclose(chroma[0], 0.3127, atol=0.01)
+        assert np.isclose(chroma[1], 0.3290, atol=0.01)
+    beta = np.random.default_rng(2).normal(0, 1e-3, (4, 512)).astype(np.float32)
+    beta[2] *= 1e3
+    beta[3] = np.abs(beta[3]) * 1e3
+    for b in (beta, beta[:3]):
+        np.testing.assert_allclose(
+            tspectrum.observe_parametric_spectrum_under_d65(
+                torch.from_numpy(b), sample_count=samples).numpy(),
+            np.asarray(jspectrum.observe_parametric_spectrum_under_d65(
+                b, sample_count=samples)), rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.parametrize('mode', [0, 1, 2, 3])
 def test_tonemap(mode):
     color = np.random.default_rng(2).uniform(0, 4, (3, 64, 32)).astype(np.float32)

@@ -14,11 +14,12 @@ marker and skip on a machine without one; on the GPU machine run them
 with `python -m pytest tests/test_torch_cuda.py -m cuda`.
 """
 
+import contextlib
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
-
-import contextlib
 
 from path_tracer_tpu_torch.core.constants import (
     MATERIAL_TYPE_BASIC_DIFFUSE, MATERIAL_TYPE_BASIC_METAL,
@@ -610,3 +611,132 @@ def test_openpbr_scene_on_card_matches_cpu(cuda):
     rel = np.abs(img - ref).mean() / (ref.mean() + 1e-3)
     bias = abs(img.mean() - ref.mean()) / (ref.mean() + 1e-3)
     assert rel < 0.02 and bias < 0.02, (rel, bias)
+
+
+def test_waves_render_on_card_matches_cpu(cuda):
+    """A waves=4 render of the textured scene at 32x16, 4 rounds, seed 3,
+    on the card against the CPU: the same streams, so within bench.py's
+    band floor (2%); inst_trace launched once a round."""
+    import path_tracer_tpu_torch as tpkg
+    import path_tracer_tpu_torch.scene.model as model
+    import path_tracer_tpu_torch.scene.procedural as proc
+    from path_tracer_tpu_torch.ops import trace_inst
+
+    def frame(device):
+        packed = tpkg.compile_scene(textured_scene(model, proc),
+                                    aspect_ratio=2.0, device=device)
+        state = tpkg.render(packed, tpkg.RenderConfig(width=32, height=16,
+                                                      waves=4), 4, seed=3)
+        return tpkg.resolve(state['accum'], 32, 16, lane=state['lane'])
+
+    ref = frame('cpu').numpy()
+    trace_inst.reset_launches()
+    img = frame(cuda).cpu().numpy()
+    assert trace_inst.launches == 4
+    rel = np.abs(img - ref).mean() / (ref.mean() + 1e-3)
+    bias = abs(img.mean() - ref.mean()) / (ref.mean() + 1e-3)
+    assert rel < 0.02 and bias < 0.02, (rel, bias)
+
+
+def test_render_resilient_on_card(cuda, tmp_path):
+    """render_resilient on the card with one injected failure equals the
+    uninterrupted render bit for bit, stays on the card, and its
+    checkpoint loads on the CPU to the same tensors."""
+    import path_tracer_tpu_torch.scene.model as model
+    import path_tracer_tpu_torch.scene.procedural as proc
+    from path_tracer_tpu_torch.integrator.checkpoint import load_render_state
+    from path_tracer_tpu_torch.utils.resilience import render_resilient
+
+    ckpt = str(tmp_path / 'c.npz')
+    clean = render_resilient(textured_scene(model, proc), 64, 32, 6, seed=3,
+                             checkpoint_every=2, device=cuda)
+    fired = []
+
+    def inject(done):
+        if done == 2 and not fired:
+            fired.append(done)
+            raise RuntimeError('injected')
+
+    state = render_resilient(textured_scene(model, proc), 64, 32, 6, seed=3,
+                             checkpoint_path=ckpt, checkpoint_every=2,
+                             device=cuda, _inject_failure=inject)
+    assert fired and state['accum']['xyz'].is_cuda
+    for key in ('origin', 'direction', 'rng_state', 'lane'):
+        assert torch.equal(clean[key], state[key]), key
+    assert torch.equal(clean['accum']['xyz'], state['accum']['xyz'])
+    like = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+                else v.cpu()) for k, v in state.items()}
+    on_cpu = load_render_state(ckpt, like, device='cpu')
+    assert torch.equal(on_cpu['accum']['xyz'], like['accum']['xyz'])
+    assert torch.equal(on_cpu['rng_state'], like['rng_state'])
+
+
+def test_session_preview_and_heatmap_on_card(cuda):
+    """A Session on the card: frames (inst_trace once a round), all seven
+    preview modes, a pick, an incremental material edit equal to a full
+    compile in every field, and the heatmap's kernel counters equal to
+    the plain version's."""
+    import path_tracer_tpu_torch.scene.compile as tcompile
+    import path_tracer_tpu_torch.scene.model as model
+    import path_tracer_tpu_torch.scene.procedural as proc
+    from path_tracer_tpu_torch.app import Session
+    from path_tracer_tpu_torch.ops import trace_inst
+    from path_tracer_tpu_torch.viewer import preview
+
+    session = Session(textured_scene(model, proc), 64, 32, device=cuda)
+    trace_inst.reset_launches()
+    for _ in range(3):
+        img = session.frame()
+    assert trace_inst.launches == 3 and img.is_cuda
+    for mode in range(7):
+        frame = session.preview(mode=mode)
+        assert tuple(frame.shape) == (32, 64, 3)
+        assert bool(torch.isfinite(frame).all()) and float(frame.max()) > 0.0
+    assert session.pick(32, 16) >= -1
+
+    session.scene.materials[0].base_color = np.asarray([0.2, 0.5, 0.9],
+                                                       np.float32)
+    session.scene.mark_dirty(model.SCENE_DIRTY_MATERIALS)
+    session.frame()
+    fresh = textured_scene(model, proc)
+    fresh.compile_generic = True
+    fresh.materials[0].base_color = np.asarray([0.2, 0.5, 0.9], np.float32)
+    full = tcompile.compile_scene(fresh, aspect_ratio=2.0, device=cuda)
+    for f in dataclasses.fields(full):
+        a, b = getattr(session.packed, f.name), getattr(full, f.name)
+        if f.name == 'materials':
+            for g in dataclasses.fields(a):
+                assert torch.equal(getattr(a, g.name), getattr(b, g.name)), g.name
+        elif isinstance(a, dict):
+            assert all(torch.equal(a[k], b[k]) for k in a), f.name
+        else:
+            assert torch.equal(a, b), f.name
+    with pytest.raises(ValueError):
+        tcompile.compile_scene(fresh, full, device='cpu')
+
+    world = torch.as_tensor(session.camera_world(), device=cuda)
+    origin, direction = preview._preview_rays(64, 32, world)
+    t_in = torch.full((64 * 32,), 1e30, device=cuda)
+    tables = (session.packed.inst_nodes, session.packed.inst_tris,
+              session.packed.inst_rows)
+    *_, stats = trace_inst.inst_trace(*tables, origin, direction, t_in,
+                                      session.layout.tlas_rows, stats=True)
+    *_, plain = trace_inst.inst_trace_plain(*tables, origin, direction, t_in,
+                                            session.layout.tlas_rows, stats=True)
+    assert torch.equal(stats, plain)
+    heat = session.preview(mode=preview.PREVIEW_RENDER_MODE_MESH_COMPLEXITY)
+    assert float(heat[..., 1].max()) > 0.0 and float(heat[..., 0].max()) == 0.0
+
+
+def test_cli_demo_on_card(cuda, tmp_path):
+    """`python -m path_tracer_tpu_torch demo viking` on the card (its
+    default device) writes a PNG."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path / 'v.png')
+    subprocess.run([sys.executable, '-m', 'path_tracer_tpu_torch', 'demo',
+                    'viking', out, '--width', '64', '--height', '32',
+                    '--rounds', '4'], cwd=repo, check=True, timeout=600)
+    assert os.path.getsize(out) > 100

@@ -56,8 +56,9 @@ def test_render_scene_matches_jax_in_mc_bands():
 
 
 def test_port_imports_no_jax():
-    """Importing the port (and driving its CPU path) loads neither JAX
-    nor the JAX package."""
+    """Importing the port's modules, the scene I/O, checkpoint, CLI,
+    Session and preview among them, loads neither JAX nor the JAX
+    package."""
     code = ('import sys, torch, path_tracer_tpu_torch as p\n'
             'from path_tracer_tpu_torch.integrator import scatter, wavefront\n'
             'from path_tracer_tpu_torch.ops import trace_inst, trace_packet, '
@@ -65,6 +66,12 @@ def test_port_imports_no_jax():
             'from path_tracer_tpu_torch.models import basic_metal, '
             'basic_translucent, openpbr\n'
             'from path_tracer_tpu_torch.core import optics\n'
+            'from path_tracer_tpu_torch import app, __main__\n'
+            'from path_tracer_tpu_torch.viewer import preview\n'
+            'from path_tracer_tpu_torch.scene import serializer, objload\n'
+            'from path_tracer_tpu_torch.utils import image, resilience, '
+            'profiling\n'
+            'from path_tracer_tpu_torch.integrator import checkpoint\n'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "path_tracer_tpu" or m.startswith("path_tracer_tpu.")]\n'
             'assert not bad, bad\n')
