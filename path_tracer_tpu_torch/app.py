@@ -35,7 +35,7 @@ class Session:
     """Progressive interactive render session over an editable scene."""
 
     def __init__(self, scene, width=960, height=540, camera_index=0,
-                 termination_probability=0.05, generic_programs=True,
+                 termination_probability=0.05, generic_programs=False,
                  device='cuda'):
         self.scene = scene
         self.width = width
@@ -46,11 +46,17 @@ class Session:
         # The JAX package's editor compiles GENERIC programs (every
         # analytic shape type and material model in from the start,
         # conservative scatter flags) so that no edit changes the
-        # program structure and stalls on an XLA recompile. The port
-        # has no program to recompile; the flag is kept so both
-        # packages pack and dispatch the same scene alike, and the
-        # specialization test of tests/test_torch_media.py shows the
-        # flags change no result.
+        # program structure and stalls on an XLA recompile. The port has
+        # no program to recompile, and there the generic layout only
+        # runs every model's branch: a steady frame of the viking hall
+        # at 960x540 took 116-157 ms and 8,400-8,500 kernels with it
+        # against 16-24 ms and 1,110 kernels without (chip_smoke.py
+        # phases `session` and `viewer` time both; NVIDIA H100 80GB
+        # HBM3, 700 W). So the port specializes by default.
+        # generic_programs=True packs as the JAX editor does. The two
+        # layouts give two samples of one estimator, not the same bits:
+        # with every model in the type set the OpenPBR walk draws on
+        # every lane (tests/test_torch_app.py).
         self.generic_programs = generic_programs
         scene.compile_generic = generic_programs
         self.packed = None

@@ -43,8 +43,8 @@
 //     holds 7 triangles on average, a row has room for 8, a second row is
 //     mostly padding);
 //   * a stack entry carries the distance at which the ray enters the box,
-//     and a pop whose entry is not before the ray's t any more is dropped
-//     without its row (0.9-1.2 pops a ray): the plain version does the
+//     and a pop whose entry lies beyond the ray's t by more than the slab
+//     test's rounding (CULL_SLACK) is dropped without its row (0.9-1.2 pops a ray): the plain version does the
 //     same, so the two still agree to the bit;
 //   * the triangle tests stand outside the loop that pops (two loops, the
 //     leaf loop not unrolled);
@@ -79,7 +79,7 @@ using namespace traverse;
 constexpr int STACK_DEPTH = 128;
 constexpr int BLOCK = 128;
 constexpr int MIN_BLOCKS = 7;         // blocks an SM the registers must allow
-constexpr bool CULL_POPS = true;      // drop a pop whose entry is not before t
+constexpr bool CULL_POPS = true;      // drop a pop whose entry is beyond t
 constexpr int INST_BASE = 1 << 22;
 constexpr int LEAF_ROWS = 2;  // bvh8.LEAF_MAX / 8 rows of a leaf at most
 
@@ -190,7 +190,7 @@ inst_trace_kernel(const float* __restrict__ nodes,
       const int2 top = stack[--sp];
       const int v = top.x;
       const float entered = __int_as_float(top.y);
-      if (CULL_POPS && !(entered < t)) {
+      if (CULL_POPS && !(entered < t * CULL_SLACK)) {
         // A hit closer than this box was found since the push: nothing in
         // the box (nor in its children, whose boxes lie inside it) can win.
         if (STATS) {

@@ -33,7 +33,7 @@
 // few warps an SM to hide a pop's dependent loads. The design: 56
 // registers, 9 blocks an SM, no spill (MIN_BLOCKS); only the filled slots
 // of a leaf row tested; the entry distance on the stack and a pop dropped
-// without its row when that distance is not before t any more (the plain
+// without its row when that distance lies beyond t * CULL_SLACK (the plain
 // version does the same); the triangle tests outside the loop that pops;
 // one round trip to memory a pop. Taken out after measuring: tables packed
 // for the card (1-3% faster), a stack in shared memory, two push loops (one
@@ -50,7 +50,7 @@ using namespace traverse;
 constexpr int STACK_DEPTH = 96;
 constexpr int BLOCK = 128;
 constexpr int MIN_BLOCKS = 9;         // blocks an SM the registers must allow
-constexpr bool CULL_POPS = true;      // drop a pop whose entry is not before t
+constexpr bool CULL_POPS = true;      // drop a pop whose entry is beyond t
 constexpr int LEAF_ROWS = 2;  // bvh8.LEAF_MAX / 8 rows of a leaf at most
 
 // The counters of a stats launch need registers of their own: only the
@@ -133,7 +133,7 @@ wide_trace5_kernel(const float* __restrict__ nodes,
       }
       const int2 top = stack[--sp];
       const int v = top.x;
-      if (CULL_POPS && !(__int_as_float(top.y) < t)) {
+      if (CULL_POPS && !(__int_as_float(top.y) < t * CULL_SLACK)) {
         // A hit closer than this box was found since the push: nothing in
         // the box (nor in its children, whose boxes lie inside it) can win.
         if (STATS) {

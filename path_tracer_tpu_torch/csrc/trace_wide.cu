@@ -52,7 +52,7 @@ using namespace traverse;
 constexpr int STACK_DEPTH = 96;
 constexpr int BLOCK = 128;
 constexpr int MIN_BLOCKS = 9;         // blocks an SM the registers must allow
-constexpr bool CULL_POPS = true;      // drop a pop whose entry is not before t
+constexpr bool CULL_POPS = true;      // drop a pop whose entry is beyond t
 constexpr bool WARP_LEAF = true;      // the leaf test spread over the warp
 // The warp spreads its leaves only where that takes fewer passes, each
 // counted as WARP_PASS_COST triangle tests, than its longest leaf takes a
@@ -290,7 +290,7 @@ wide_trace_kernel(const float* __restrict__ nodes,
       }
       const int2 top = stack[--sp];
       const int v = top.x;
-      if (CULL_POPS && !(__int_as_float(top.y) < t)) {
+      if (CULL_POPS && !(__int_as_float(top.y) < t * CULL_SLACK)) {
         // A hit closer than this box was found since the push: nothing in
         // the box (nor in its children, whose boxes lie inside it) can win.
         if (STATS) {

@@ -214,6 +214,15 @@ __device__ __forceinline__ unsigned slab_entries(const float* __restrict__ row,
 // at which the ray enters its box, kept so that a pop can be dropped
 // without its row once a closer hit is known. The stack is a per-thread
 // array in local memory; entries at depth >= DEPTH are dropped.
+// The pop cull drops an entry only when its entry distance lies beyond the
+// ray's t by more than the slab test's rounding: `!(entry < t * CULL_SLACK)`.
+// Without the slack, a hit one ulp before the rounded entry of the one leaf
+// that holds its triangle was lost (1 of 2,073,600 viking hall rays);
+// 1 + 2^-23, the smallest slack above 1 in float32, keeps every hit of the
+// viking hall's and the terrain's rays (chip_smoke.py, `pop_cull`). The
+// plain versions use the same constant (ops/trace_inst.py CULL_SLACK).
+constexpr float CULL_SLACK = 1.0f + 1.0f / 8388608.0f;
+
 template <int DEPTH>
 __device__ __forceinline__ void stack_put(int2* stack, int k, int v,
                                           float entry) {

@@ -20,8 +20,9 @@ per-ray traversal written in PyTorch. There is no fallback from one to
 the other.
 
 A stack entry carries the distance at which the ray enters the node's
-box, and a pop whose entry is no longer before the ray's t is dropped
-without fetching its row (the pop cull). Kernel and plain version cull
+box, and a pop whose entry lies beyond the ray's t by more than the slab
+test's rounding (`CULL_SLACK`) is dropped without fetching its row (the
+pop cull). Kernel and plain version cull
 alike; the simple kernel does not cull, and equals the plain version
 with cull=False.
 """
@@ -36,6 +37,11 @@ STACK_DEPTH = 128
 INST_BASE = 1 << 22      # stack entries >= INST_BASE are instance tags
 PASS_LIMIT = 0.5 * bvh8.BIG
 LEAF_ROWS = bvh8.LEAF_MAX // 8
+# The pop cull drops a pop only when its entry distance is not before
+# t * CULL_SLACK: beyond t by more than the slab test's rounding (the
+# kernels' constant of csrc/traverse.cuh; 1 + 2^-23, the smallest slack
+# above 1 in float32).
+CULL_SLACK = 1.0 + 2.0 ** -23
 LEAF_FMTS = {'mt': 0, 'bary': 1, 'woop': 2}
 
 VARIANTS = ('tuned', 'simple')
@@ -72,9 +78,9 @@ def inst_trace_plain(nodes, tris, inst_rows, origin, direction, t_in,
     Every ray owns a stack of `stack_depth` (node, entry distance)
     pairs; each loop iteration pops one entry from every ray whose stack
     is not empty, drops it when `cull` and its entry distance is not
-    before the ray's t, and otherwise handles it as an instance tag, an
-    interior node or a leaf, with the kernel's arithmetic in the kernel's
-    order, until every stack is empty. Pushes past the depth are dropped.
+    before the ray's t * CULL_SLACK, and otherwise handles it as an
+    instance tag, an interior node or a leaf, with the kernel's arithmetic
+    in the kernel's order, until every stack is empty. Pushes past the depth are dropped.
     Arguments and results as `inst_trace`; the counters count the pops
     that were not dropped.
     """
@@ -115,7 +121,7 @@ def inst_trace_plain(nodes, tris, inst_rows, origin, direction, t_in,
         v = stack[act, sp[act]]
         e = entered[act, sp[act]]
         if cull:
-            keep = e < t[act]
+            keep = e < t[act] * CULL_SLACK
             act, v, e = act[keep], v[keep], e[keep]
 
         # Instance tags: object-space ray registers, push the mesh root

@@ -21,8 +21,9 @@ measure against; on a CPU tensor it runs `wide_trace5_plain`, the same per-ray t
 in PyTorch. There is no fallback from one to the other.
 
 A stack entry carries the distance at which the ray enters the node's
-box, and a pop whose entry is no longer before the ray's t is dropped
-without fetching its row (the pop cull). Kernel and plain version cull
+box, and a pop whose entry lies beyond the ray's t by more than the slab
+test's rounding (trace_inst.CULL_SLACK) is dropped without fetching its
+row (the pop cull). Kernel and plain version cull
 alike (so do `wide_trace` and its plain version); the simple kernel does
 not cull, and equals the plain version with cull=False.
 
@@ -40,8 +41,8 @@ import torch
 
 from ..scene import bvh8
 from .trace_inst import (
-    LEAF_FMTS, VARIANTS, anatomy_record, check_tensor, leaf_tests, safe_inv,
-    stats_buffers)
+    CULL_SLACK, LEAF_FMTS, VARIANTS, anatomy_record, check_tensor, leaf_tests,
+    safe_inv, stats_buffers)
 
 STACK_DEPTH = 96
 PASS_LIMIT = 0.5 * bvh8.BIG
@@ -66,10 +67,10 @@ def traverse_plain(nodes, origin, direction, t, leaf, leaf_rows,
     Every ray owns a stack of `stack_depth` (node, entry distance) pairs
     that starts at the root; each loop iteration pops one entry from
     every ray whose stack is not empty, and drops it when `cull` and its
-    entry distance is not before the ray's current `t`. An interior pop
-    slab-tests the eight child boxes against `t` and pushes the entered,
-    non-empty children in the order the ray's direction along the node's
-    axis gives; pushes past the depth are dropped. A leaf pop
+    entry distance is not before the ray's current `t` * CULL_SLACK. An
+    interior pop slab-tests the eight child boxes against `t` and pushes
+    the entered, non-empty children in the order the ray's direction along
+    the node's axis gives; pushes past the depth are dropped. A leaf pop
     calls `leaf(ridx, row_id, count, rr, o, d)` once for each of its
     rows (later rows only where count > tris_per_row * rr) with the rays
     `ridx` that test table row `row_id`; `leaf` updates `t` and its own
@@ -95,7 +96,7 @@ def traverse_plain(nodes, origin, direction, t, leaf, leaf_rows,
         sp[act] -= 1
         v = stack[act, sp[act]]
         if cull:
-            keep = entered[act, sp[act]] < t[act]
+            keep = entered[act, sp[act]] < t[act] * CULL_SLACK
             act, v = act[keep], v[keep]
 
         sel = v >= 0

@@ -62,10 +62,38 @@ def test_session_progressive_and_restart():
     assert tuple(pimg.shape) == (16, 32, 3) and bool(torch.isfinite(pimg).all())
     assert session.pick(16, 8) >= -1
     assert session.packed.camera_model.device.type == 'cpu'
-    # Generic programs, as the JAX package's editor compiles them: every
-    # analytic type and material model is in the layout.
-    assert [t for t, _ in session.layout.analytic_buckets] == [1, 2, 3]
-    assert session.layout.material_types == (0, 1, 2, 3)
+    # Specialized programs by default: the Cornell box's own shape types
+    # and material models only. generic_programs=True lays out every
+    # analytic type and material model, as the JAX package's editor does.
+    assert not session.scene.compile_generic
+    assert session.layout.material_types != (0, 1, 2, 3)
+    generic = Session(tproc.make_cornell_scene(), width=32, height=16,
+                      generic_programs=True, device='cpu')
+    assert [t for t, _ in generic.layout.analytic_buckets] == [1, 2, 3]
+    assert generic.layout.material_types == (0, 1, 2, 3)
+
+
+def test_session_default_frames_match_generic():
+    """The default (specialized) Session against Session(generic_programs=
+    True) over a restart frame and two steady frames. Not the same bits:
+    the generic type set runs the OpenPBR layer walk, whose 24 draws a
+    lane are taken whenever OpenPBR is in the set (as in the JAX
+    package), so the two RNG streams part after the first round. The
+    frames are two samples of one estimator: their first rounds are the
+    same sample, and after 49 and 97 rounds their means agree within 2%
+    (0.6% here)."""
+    sessions = [Session(tproc.make_cornell_scene(), width=64, height=32,
+                        generic_programs=generic, device='cpu')
+                for generic in (False, True)]
+    assert sessions[0].layout.material_types != (0, 1, 2, 3)
+    assert sessions[1].layout.material_types == (0, 1, 2, 3)
+    first = [s.frame(rounds=1) for s in sessions]
+    assert torch.equal(*first)
+    frames = [[s.frame(rounds=48) for _ in range(2)] for s in sessions]
+    for a, b in zip(*frames):
+        assert bool(torch.isfinite(a).all()) and float(a.mean()) > 0.01
+        assert abs(float(a.mean() - b.mean())) < 0.02 * float(b.mean())
+
 
 
 EDITS = {

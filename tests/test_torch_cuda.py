@@ -699,7 +699,7 @@ def test_session_preview_and_heatmap_on_card(cuda):
     session.scene.mark_dirty(model.SCENE_DIRTY_MATERIALS)
     session.frame()
     fresh = textured_scene(model, proc)
-    fresh.compile_generic = True
+    fresh.compile_generic = session.generic_programs
     fresh.materials[0].base_color = np.asarray([0.2, 0.5, 0.9], np.float32)
     full = tcompile.compile_scene(fresh, aspect_ratio=2.0, device=cuda)
     for f in dataclasses.fields(full):
@@ -740,3 +740,85 @@ def test_cli_demo_on_card(cuda, tmp_path):
                     'viking', out, '--width', '64', '--height', '32',
                     '--rounds', '4'], cwd=repo, check=True, timeout=600)
     assert os.path.getsize(out) > 100
+
+
+def test_resolve_is_bit_stable_on_the_card(cuda):
+    """resolve of a waves=4 accumulator, on the reset layout and with the
+    slots shuffled, gives the same frame on every call (the fold adds a
+    pixel's slots in slot order, not through atomics), equal to the CPU
+    fold of the same slots."""
+    from path_tracer_tpu_torch.integrator.resolve import resolve
+    rng = np.random.default_rng(4)
+    w, h, waves = 256, 128, 4
+    n = waves * w * h
+    xyz = torch.from_numpy(rng.uniform(0, 3, (3, n)).astype(np.float32))
+    count = torch.from_numpy(rng.integers(0, 5, n).astype(np.float32))
+    lane = torch.arange(n, dtype=torch.int32) % (w * h)
+    perm = torch.from_numpy(rng.permutation(n))
+    for args in ((xyz, count, lane), (xyz[:, perm], count[perm], lane[perm])):
+        cpu = resolve(dict(xyz=args[0], count=args[1]), w, h, lane=args[2])
+        frames = [resolve(dict(xyz=args[0].to(cuda), count=args[1].to(cuda)),
+                          w, h, lane=args[2].to(cuda)) for _ in range(4)]
+        for frame in frames:
+            assert torch.equal(frame, frames[0])
+        np.testing.assert_allclose(frames[0].cpu().numpy(), cpu.numpy(),
+                                   rtol=2e-5, atol=2e-6)
+
+
+def test_viewer_server_frame_on_card(cuda):
+    """viewer/server.py over a Session on the card: a /frame.png poll
+    launches inst_trace once and serves a PNG; a material edit over HTTP
+    reaches the next frame."""
+    import json
+    import urllib.request
+    import path_tracer_tpu_torch.scene.model as model
+    import path_tracer_tpu_torch.scene.procedural as proc
+    from path_tracer_tpu_torch.app import Session
+    from path_tracer_tpu_torch.ops import trace_inst
+    from path_tracer_tpu_torch.viewer.server import ViewerServer
+
+    session = Session(textured_scene(model, proc), 64, 32, device=cuda)
+    server = ViewerServer(session, port=0)
+    server.serve_background()
+    base = f'http://127.0.0.1:{server.port}'
+    try:
+        trace_inst.reset_launches()
+        png = urllib.request.urlopen(base + '/frame.png?mode=render').read()
+        assert png[:8] == b'\x89PNG\r\n\x1a\n' and trace_inst.launches == 1
+        req = urllib.request.Request(base + '/material/update', data=json.dumps(
+            {'index': 0, 'field': 'base_color', 'value': [0.9, 0.1, 0.1]}
+        ).encode(), method='POST')
+        urllib.request.urlopen(req).read()
+        after = urllib.request.urlopen(base + '/frame.png?mode=render').read()
+        assert after != png and trace_inst.launches == 3
+        assert session.state['accum']['xyz'].is_cuda
+    finally:
+        server.shutdown()
+
+
+def test_sharded_render_world_of_one_on_card(cuda):
+    """parallel/render.py at world size 1 over NCCL: the merged
+    accumulator equals wavefront.render's bit for bit, at 1 and 2
+    waves."""
+    import torch.distributed as dist
+    import path_tracer_tpu_torch.scene.compile as tcompile
+    import path_tracer_tpu_torch.scene.model as model
+    import path_tracer_tpu_torch.scene.procedural as proc
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.parallel import render as parallel
+
+    mesh = parallel.make_mesh(device='cuda')
+    try:
+        assert dist.get_backend() == 'nccl' and mesh.shape == {
+            'batch': 1, 'pixels': 1}
+        packed = tcompile.compile_scene(textured_scene(model, proc),
+                                        aspect_ratio=2.0, device=cuda)
+        for waves in (1, 2):
+            config = wavefront.RenderConfig(width=64, height=32, waves=waves)
+            merged = parallel.render_sharded(packed, config, 4, mesh, seed=2)
+            single = wavefront.render(packed, config, 4, seed=2)
+            order = torch.argsort(single['lane'], stable=True)
+            assert torch.equal(merged['xyz'], single['accum']['xyz'][:, order])
+            assert torch.equal(merged['count'], single['accum']['count'][order])
+    finally:
+        dist.destroy_process_group()

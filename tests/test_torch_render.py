@@ -57,8 +57,8 @@ def test_render_scene_matches_jax_in_mc_bands():
 
 def test_port_imports_no_jax():
     """Importing the port's modules, the scene I/O, checkpoint, CLI,
-    Session and preview among them, loads neither JAX nor the JAX
-    package."""
+    Session, preview, the viewer server, the debug tools and the sharded
+    render among them, loads neither JAX nor the JAX package."""
     code = ('import sys, torch, path_tracer_tpu_torch as p\n'
             'from path_tracer_tpu_torch.integrator import scatter, wavefront\n'
             'from path_tracer_tpu_torch.ops import trace_inst, trace_packet, '
@@ -72,6 +72,9 @@ def test_port_imports_no_jax():
             'from path_tracer_tpu_torch.utils import image, resilience, '
             'profiling\n'
             'from path_tracer_tpu_torch.integrator import checkpoint\n'
+            'from path_tracer_tpu_torch.viewer import server\n'
+            'from path_tracer_tpu_torch.utils import debug\n'
+            'from path_tracer_tpu_torch.parallel import render\n'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "path_tracer_tpu" or m.startswith("path_tracer_tpu.")]\n'
             'assert not bad, bad\n')

@@ -1,9 +1,12 @@
 """The pop cull of the plain traversals, their stack depth and counters,
 and the ray sort of the render loop, on the CPU.
 
-The pop cull drops a popped node whose box the ray enters no earlier than
-its current t. A child's box lies inside its parent's, so no closer hit is
-lost and t is equal with and without it on every ray, exactly. The face
+The pop cull drops a popped node whose box the ray enters later than its
+current t by more than the slab test's rounding (t * CULL_SLACK). A
+child's box lies inside its parent's, so no closer hit is lost and t is
+equal with and without it on every ray, exactly; without the slack, the
+rounded entry of a leaf box could lie one ulp beyond a hit inside it
+(`test_cull_keeps_the_hit_at_the_rounded_box_entry`). The face
 may differ where the BVH build's spatial splits refer to one triangle from
 two leaves and the hit lies outside one of the two leaf boxes: the cull
 then skips that leaf and the other reference wins (face agreement > 0.999
@@ -26,6 +29,7 @@ import path_tracer_tpu_torch.scene.model as tmodel
 import path_tracer_tpu_torch.scene.procedural as tproc
 from path_tracer_tpu.ops.intersect import SceneLayout as JLayout
 from path_tracer_tpu_torch.integrator import wavefront
+from path_tracer_tpu_torch.ops.intersect import SceneLayout as TLayout
 from path_tracer_tpu_torch.ops import trace_inst, trace_packet, trace_wide
 
 from test_torch_compile import jax_fields, layout_fields
@@ -33,6 +37,21 @@ from test_torch_cuda import (
     blob_scene, flat_mode, textured_scene, two_instance_scene)
 
 LEAF_FMTS = ['mt', 'bary', 'woop']
+
+# Viking hall rays whose hit lies one ulp before the rounded entry
+# distance of the one leaf box that holds its triangle, so a cull without
+# slack lost the hit (t one ulp longer, another face): found among the
+# 2,073,600 primary and bounce rays of chip_smoke.py's `pop_cull` phase on
+# an NVIDIA H100 (the kernels and the plain versions lose it alike).
+# (leaf format, origin, direction, t_in, the kernels that lost it)
+LOST_RAYS = [
+    ('bary', ('0x0.0p+0', '-0x1.ap+2', '0x1.333334p+1'),
+     ('-0x1.b33b9cp-2', '0x1.be3c0cp-1', '-0x1.f496fp-3'), '0x1.0p+20',
+     ('inst_trace', 'wide_trace5')),
+    ('mt', ('0x0.0p+0', '-0x1.ap+2', '0x1.333334p+1'),
+     ('0x1.a77b46p-4', '0x1.e7fc92p-1', '-0x1.234796p-2'), '0x1.0p+20',
+     ('inst_trace',)),
+]
 
 
 @pytest.fixture
@@ -237,3 +256,61 @@ def test_render_is_the_same_with_and_without_ray_sort(mode):
     assert float(accums[0]['count'].sum()) > 0
     assert torch.equal(accums[0]['xyz'], accums[1]['xyz'])
     assert torch.equal(accums[0]['count'], accums[1]['count'])
+
+
+@pytest.fixture(scope='module')
+def viking_tables():
+    """The viking hall's tables in both modes and the three leaf formats
+    (the geometry only: its texture and sky change no table)."""
+    tables = {}
+    for fmt in LEAF_FMTS:
+        for mode in ('inst', 'flat'):
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(_leaf_format(fmt))
+                if mode == 'flat':
+                    stack.enter_context(flat_mode(tcompile))
+                tables[fmt, mode] = tcompile.compile_scene(
+                    tproc.make_viking_hall_scene(detail=1, with_sky=False,
+                                                 textured=False),
+                    aspect_ratio=16 / 9, device='cpu')
+    return tables
+
+
+@contextlib.contextmanager
+def _leaf_format(fmt):
+    saved = tbvh8.LEAF_FMT
+    tbvh8.LEAF_FMT = fmt
+    try:
+        yield
+    finally:
+        tbvh8.LEAF_FMT = saved
+
+
+@pytest.mark.parametrize('case', range(len(LOST_RAYS)))
+def test_cull_keeps_the_hit_at_the_rounded_box_entry(viking_tables, case):
+    """The rays that the cull without slack lost on the card: with the
+    cull, inst_trace_plain and wide_trace5_plain give the same t, face,
+    fu and fv as without it, bit for bit, and the ray hits."""
+    fmt, origin, direction, t_in, _ = LOST_RAYS[case]
+
+    def column(values):
+        return torch.tensor([[float.fromhex(v)] for v in values])
+
+    rays = (column(origin), column(direction),
+            torch.tensor([float.fromhex(t_in)]))
+    inst = viking_tables[fmt, 'inst']
+    flat = viking_tables[fmt, 'flat']
+    tlas_rows = TLayout.from_packed(inst).tlas_rows
+    plains = {
+        'inst_trace': lambda cull: trace_inst.inst_trace_plain(
+            inst.inst_nodes, inst.inst_tris, inst.inst_rows, *rays,
+            tlas_rows, leaf_fmt=fmt, cull=cull),
+        'wide_trace5': lambda cull: trace_packet.wide_trace5_plain(
+            flat.wide_nodes_g, flat.wide_tris_g, *rays, leaf_fmt=fmt,
+            cull=cull)}
+    for name, plain in plains.items():
+        culled, full = plain(True), plain(False)
+        assert int(full[1][0]) >= 0, name
+        for a, b in zip(culled, full):
+            assert torch.equal(a, b), (name, float(culled[0][0]),
+                                       float(full[0][0]))

@@ -100,3 +100,34 @@ def test_waves_render_accumulates_and_agrees(packed):
     rel = np.abs(img - ref).mean() / (ref.mean() + 1e-3)
     bias = abs(img.mean() - ref.mean()) / (ref.mean() + 1e-3)
     assert rel < 0.02 and bias < 0.02, (rel, bias)
+
+
+@pytest.mark.parametrize('waves', [1, 4])
+@pytest.mark.parametrize('shuffled', [False, True])
+def test_resolve_fold_matches_jax(waves, shuffled):
+    """The fixed-order fold of `resolve` against the JAX package's
+    scatter-add, on random accumulators of the reset layout (the waves
+    summed per lane) and with the slots shuffled (sorted by pixel, then
+    added rank by rank); counts include empty slots and a frame that is
+    not a whole number of 32x8 tiles takes the unswizzled lane map too."""
+    for w, h in ((W, H), (20, 6)):
+        n = waves * w * h
+        rng = np.random.default_rng(waves + 10 * shuffled + w)
+        xyz = rng.uniform(0.0, 3.0, (3, n)).astype(np.float32)
+        count = rng.integers(0, 5, n).astype(np.float32)
+        lane = (np.arange(n) % (w * h)).astype(np.int32)
+        if shuffled:
+            perm = rng.permutation(n)
+            xyz, count, lane = xyz[:, perm], count[perm], lane[perm]
+        got = tpkg.resolve(dict(xyz=torch.from_numpy(xyz),
+                                count=torch.from_numpy(count)), w, h,
+                           brightness=1.5, lane=torch.from_numpy(lane))
+        want = jpkg.resolve(dict(xyz=jnp.asarray(xyz),
+                                 count=jnp.asarray(count)), w, h,
+                            brightness=1.5, lane=jnp.asarray(lane))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-6)
+        _, pix_count = tpkg.integrator.resolve.fold(
+            torch.from_numpy(xyz), torch.from_numpy(count),
+            torch.from_numpy(lane), w, h)
+        assert float(pix_count.sum()) == float(count.sum())
