@@ -1,0 +1,123 @@
+# Frozen copy of path_tracer_tpu_torch/models/dispatch.py, part of the benchmark's
+# plain reference: not kept in step with the program.
+"""Material dispatch: compute every model a scene uses, select by type.
+
+Port of path_tracer_tpu/models/dispatch.py. The reference branches per
+GPU thread (scene.glsl.inc:687-764); here, as in the JAX package, every
+lane evaluates every model of the scene and the results are selected by
+material type. `types` is the static set from SceneLayout.material_types:
+a scene without an OpenPBR material never runs the 8-bounce layer walk,
+and a diffuse-only scene runs one model with no selects. An empty tuple
+means all four models. Lanes whose type is not in the set (missed rays
+carrying the fallback slot) get the first model's result, which callers
+mask.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.constants import (
+    MATERIAL_TYPE_BASIC_DIFFUSE,
+    MATERIAL_TYPE_BASIC_METAL,
+    MATERIAL_TYPE_BASIC_TRANSLUCENT,
+    MATERIAL_TYPE_OPENPBR,
+)
+from . import basic_diffuse, basic_metal, basic_translucent, openpbr
+
+_MODELS = {
+    MATERIAL_TYPE_BASIC_DIFFUSE: basic_diffuse,
+    MATERIAL_TYPE_BASIC_METAL: basic_metal,
+    MATERIAL_TYPE_BASIC_TRANSLUCENT: basic_translucent,
+    MATERIAL_TYPE_OPENPBR: openpbr,
+}
+_ALL_TYPES = tuple(_MODELS)
+
+
+def active_types(types):
+    if not types:
+        return _ALL_TYPES
+    return tuple(t for t in _ALL_TYPES if t in types)
+
+
+def _select(mat_type, results):
+    """Per-lane results from {material_type: value}, selected by type in
+    the order of `results`; (N,) masks broadcast against (C, N) values."""
+    types = list(results)
+    out = results[types[0]]
+    for t in types[1:]:
+        mask = mat_type == t
+        if isinstance(out, tuple):
+            out = tuple(torch.where(mask, n, o) for o, n in zip(out, results[t]))
+        else:
+            out = torch.where(mask, results[t], out)
+    return out
+
+
+def has_dirac_bsdf(ctx, types=()):
+    """MaterialHasDiracBSDF (scene.glsl.inc:713-718)."""
+    return _select(ctx['type'], {t: _MODELS[t].has_dirac_bsdf(ctx)
+                                 for t in active_types(types)})
+
+
+def sample_bsdf(ctx, view, rng, types=()):
+    """MaterialSampleBSDF over all lanes. Every model shares the same
+    three uniforms, so lane streams stay aligned; OpenPBR's layer walk
+    draws its own from `rng` after them."""
+    u1 = rng.uniform()
+    u2 = rng.uniform()
+    u3 = rng.uniform()
+    results = {}
+    for t in active_types(types):
+        if t == MATERIAL_TYPE_OPENPBR:
+            results[t] = openpbr.sample_bsdf(ctx, view, u1, u2, u3, rng)
+        else:
+            results[t] = _MODELS[t].sample_bsdf(ctx, view, u1, u2, u3)
+    return _select(ctx['type'], results)
+
+
+def evaluate_bsdf(ctx, view, scattered, types=()):
+    """MaterialEvaluateBSDF over all lanes."""
+    return _select(ctx['type'], {t: _MODELS[t].evaluate_bsdf(ctx, view, scattered)
+                                 for t in active_types(types)})
+
+
+def surface_emission(ctx, types=()):
+    """Emission radiance (4, N) of the hit surface. Only OpenPBR carries
+    emission (openpbr.hpp:127-133); the reference packs it but never
+    accumulates it, and, as in the JAX package, the integrator does."""
+    if MATERIAL_TYPE_OPENPBR not in active_types(types):
+        lam = ctx['lam']
+        return torch.zeros((4, lam.shape[1]), dtype=lam.dtype, device=lam.device)
+    return torch.where(ctx['type'] == MATERIAL_TYPE_OPENPBR,
+                       openpbr.emission(ctx), 0.0)
+
+
+def load_medium(ctx, types=()):
+    """MaterialLoadMedium (scene.glsl.inc:704-708): only translucent and
+    OpenPBR materials define an interior medium."""
+    act = active_types(types)
+    lam = ctx['lam']
+    n = lam.shape[1]
+    out = dict(
+        ior=torch.ones((4, n), device=lam.device),
+        absorption=torch.zeros((4, n), device=lam.device),
+        scattering=torch.zeros((4, n), device=lam.device),
+        anisotropy=torch.zeros((n,), device=lam.device),
+        has_medium=torch.zeros((n,), dtype=torch.bool, device=lam.device),
+    )
+    sources = [(t, _MODELS[t].load_medium(ctx)) for t in act
+               if t in (MATERIAL_TYPE_BASIC_TRANSLUCENT, MATERIAL_TYPE_OPENPBR)]
+    for key in out:
+        v = out[key]
+        for t, r in sources:
+            v = torch.where(ctx['type'] == t, r[key], v)
+        out[key] = v
+    return out
+
+
+def has_any_medium(types):
+    """Static: can any material in the scene define an interior medium?"""
+    act = active_types(types)
+    return (MATERIAL_TYPE_BASIC_TRANSLUCENT in act
+            or MATERIAL_TYPE_OPENPBR in act)
