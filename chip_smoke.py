@@ -1409,24 +1409,20 @@ def main():
     from path_tracer_tpu_torch.scene import bvh8
     from path_tracer_tpu_torch.scene import compile as scene_compile
     from path_tracer_tpu_torch.scene import model, procedural
+    from path_tracer_tpu_torch.utils import profiling
     # The scene and the mode switch that the tests of both packages share.
     from test_torch_cuda import flat_mode, two_instance_scene
 
     compile_scene = scene_compile.compile_scene
     make_viking_hall_scene = procedural.make_viking_hall_scene
-    kernels = (trace_inst, trace_packet, trace_wide)
-
-    def reset_launches():
-        for module in kernels:
-            module.reset_launches()
+    reset_launches = profiling.reset
 
     def launches():
-        return dict(inst_trace=trace_inst.launches,
-                    wide_trace5=trace_packet.launches,
-                    wide_trace=trace_wide.launches,
-                    inst_trace_simple=trace_inst.launches_simple,
-                    wide_trace5_simple=trace_packet.launches_simple,
-                    wide_trace_simple=trace_wide.launches_simple)
+        counted = profiling.counters()
+        return {name: counted.get('kernel.' + name, 0)
+                for name in ('inst_trace', 'wide_trace5', 'wide_trace',
+                             'inst_trace_simple', 'wide_trace5_simple',
+                             'wide_trace_simple')}
 
     dev = torch.device(DEVICE)
     card = card_line()

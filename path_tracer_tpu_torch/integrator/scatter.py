@@ -46,6 +46,7 @@ from ..core.spectrum import (
 from ..core.vec import dot, max4, normalize, sum4, vec3
 from ..models import dispatch
 from ..models.common import fetch_ctx, fetch_medium_ctx, sample_texture
+from ..utils import profiling
 
 
 def fetch_medium(packed, shape_index, lam, types=()):
@@ -123,12 +124,14 @@ def _sample_surface_integrand(packed, ctx, hit, view, rng: Rng, types,
     u_choice = rng.uniform()
     light_dir = random_von_mises_fisher(rng, packed.skybox_concentration,
                                         mean_local)
-    bsdf_dir, bsdf_thr, bsdf_pdf, bsdf_ok = dispatch.sample_bsdf(
-        ctx, view, rng, types)
+    with profiling.span('pt.scatter.bsdf_sample'):
+        bsdf_dir, bsdf_thr, bsdf_pdf, bsdf_ok = dispatch.sample_bsdf(
+            ctx, view, rng, types)
     if not sky_sampling:
         return bsdf_dir, bsdf_thr, bsdf_pdf, bsdf_ok
-    eval_thr, eval_pdf, eval_ok = dispatch.evaluate_bsdf(ctx, view, light_dir,
-                                                         types)
+    with profiling.span('pt.scatter.bsdf_eval'):
+        eval_thr, eval_pdf, eval_ok = dispatch.evaluate_bsdf(ctx, view,
+                                                             light_dir, types)
     use_light = u_choice < light_probability
     scattered = torch.where(use_light, light_dir, bsdf_dir)
     throughput = torch.where(use_light, eval_thr, bsdf_thr)
@@ -149,199 +152,207 @@ def scatter(packed, state, ray_origin, ray_direction, hit, rng: Rng,
     new_direction, alive (N,)); dead lanes carry their final `sample`.
     `layout` gives the static scene flags.
     """
-    types = layout.material_types
-    term = torch.tensor(termination_probability, dtype=torch.float32,
-                        device=ray_origin.device)
-    lam = hero_wavelength_cluster(state['lambda0'])  # (4, N)
+    with profiling.span('pt.scatter'):
+        types = layout.material_types
+        term = torch.tensor(termination_probability, dtype=torch.float32,
+                            device=ray_origin.device)
+        lam = hero_wavelength_cluster(state['lambda0'])  # (4, N)
 
-    active_shapes = state['active_shapes']           # (LIMIT, N)
-    active_shape = torch.amin(active_shapes, dim=0)
+        active_shapes = state['active_shapes']           # (LIMIT, N)
+        active_shape = torch.amin(active_shapes, dim=0)
 
-    # Statically medium-free scenes (no translucent or OpenPBR material
-    # and no ambient scatter rate) skip the two fetch_medium gathers, the
-    # absorption and the volumetric branch: the priority is the raw shape
-    # index. The three draws are still consumed.
-    scene_has_medium = layout.scene_has_medium
-    n_lanes = active_shape.shape[0]
-    if scene_has_medium:
-        medium = fetch_medium(packed, active_shape, lam, types)
-        throughput = state['throughput'] * torch.exp(
-            -medium['absorption'] * hit['time'])
-    else:
-        medium = dict(priority=active_shape)
-        throughput = state['throughput']
-    probability = state['probability']
-    sample = state['sample']                         # (3, N)
+        # Statically medium-free scenes (no translucent or OpenPBR material
+        # and no ambient scatter rate) skip the two fetch_medium gathers, the
+        # absorption and the volumetric branch: the priority is the raw shape
+        # index. The three draws are still consumed.
+        scene_has_medium = layout.scene_has_medium
+        n_lanes = active_shape.shape[0]
+        if scene_has_medium:
+            with profiling.span('pt.scatter.medium'):
+                medium = fetch_medium(packed, active_shape, lam, types)
+                throughput = state['throughput'] * torch.exp(
+                    -medium['absorption'] * hit['time'])
+        else:
+            medium = dict(priority=active_shape)
+            throughput = state['throughput']
+        probability = state['probability']
+        sample = state['sample']                         # (3, N)
 
-    # Scattering event time at the primary wavelength. Without a medium
-    # it is the horizon: no lane scatters in a volume (the JAX package's
-    # vol_scatter is a constant False there, which its compiler folds
-    # away, as the merges below do), and a lane's event is the skybox
-    # where it hit nothing.
-    u_scatter = rng.uniform()
-    if scene_has_medium:
-        rate0 = medium['scattering'][0]
-        scattering_time = torch.where(
-            rate0 > 0.0,
-            -torch.log(torch.clamp(u_scatter, min=1e-12))
-            / torch.clamp(rate0, min=1e-12),
-            HIT_TIME_LIMIT)
-        medium_event = hit['time'] >= scattering_time
-        vol_scatter = medium_event & (scattering_time < HIT_TIME_LIMIT)
-        sky_hit = medium_event & ~vol_scatter
-    else:
-        medium_event = sky_hit = hit['time'] >= HIT_TIME_LIMIT
-    surface_event = ~medium_event
+        # Scattering event time at the primary wavelength. Without a medium
+        # it is the horizon: no lane scatters in a volume (the JAX package's
+        # vol_scatter is a constant False there, which its compiler folds
+        # away, as the merges below do), and a lane's event is the skybox
+        # where it hit nothing.
+        u_scatter = rng.uniform()
+        if scene_has_medium:
+            with profiling.span('pt.scatter.medium'):
+                rate0 = medium['scattering'][0]
+                scattering_time = torch.where(
+                    rate0 > 0.0,
+                    -torch.log(torch.clamp(u_scatter, min=1e-12))
+                    / torch.clamp(rate0, min=1e-12),
+                    HIT_TIME_LIMIT)
+                medium_event = hit['time'] >= scattering_time
+                vol_scatter = medium_event & (scattering_time < HIT_TIME_LIMIT)
+                sky_hit = medium_event & ~vol_scatter
+        else:
+            medium_event = sky_hit = hit['time'] >= HIT_TIME_LIMIT
+        surface_event = ~medium_event
 
-    # Volumetric scattering (basic_scatter.glsl:142-164).
-    u1 = rng.uniform()
-    u2 = rng.uniform()
-    if scene_has_medium:
-        hg_local = sample_direction_hg(medium['anisotropy'], u1, u2)
-        vx, vy = coordinate_frame(ray_direction)
-        vol_dir = normalize(hg_local[0] * vx + hg_local[1] * vy
-                            + hg_local[2] * ray_direction)
-        vol_origin = ray_origin + ray_direction * scattering_time
-        density = medium['scattering'] * torch.exp(
-            -medium['scattering'] * scattering_time)
-        density = density / torch.clamp(max4(density), min=EPSILON)
-        vol_throughput = throughput * density
-        vol_probability = probability * density
-    else:
-        vol_dir = vol_origin = vol_throughput = vol_probability = None
+        # Volumetric scattering (basic_scatter.glsl:142-164).
+        u1 = rng.uniform()
+        u2 = rng.uniform()
+        if scene_has_medium:
+            with profiling.span('pt.scatter.medium'):
+                hg_local = sample_direction_hg(medium['anisotropy'], u1, u2)
+                vx, vy = coordinate_frame(ray_direction)
+                vol_dir = normalize(hg_local[0] * vx + hg_local[1] * vy
+                                    + hg_local[2] * ray_direction)
+                vol_origin = ray_origin + ray_direction * scattering_time
+                density = medium['scattering'] * torch.exp(
+                    -medium['scattering'] * scattering_time)
+                density = density / torch.clamp(max4(density), min=EPSILON)
+                vol_throughput = throughput * density
+                vol_probability = probability * density
+        else:
+            vol_dir = vol_origin = vol_throughput = vol_probability = None
 
-    # Skybox emission (basic_scatter.glsl:165-172).
-    emission = sample_skybox_radiance(packed, ray_direction, lam,
-                                      layout.has_skybox_texture,
-                                      layout.atlas_size,
-                                      layout.texture_filter_modes,
-                                      layout.atlas_quad_fit)
-    cluster_pdf = torch.clamp(sum4(probability), min=1e-20)
-    observer = sample_standard_observer(lam)  # (3, 4, N)
-    sky_sample = sample + _observe(observer, emission * throughput) / cluster_pdf
+        # Skybox emission (basic_scatter.glsl:165-172).
+        emission = sample_skybox_radiance(packed, ray_direction, lam,
+                                          layout.has_skybox_texture,
+                                          layout.atlas_size,
+                                          layout.texture_filter_modes,
+                                          layout.atlas_quad_fit)
+        cluster_pdf = torch.clamp(sum4(probability), min=1e-20)
+        observer = sample_standard_observer(lam)  # (3, 4, N)
+        sky_sample = sample + _observe(observer, emission * throughput) / cluster_pdf
 
-    # Surface interaction (basic_scatter.glsl:177-309).
-    view = -vec3(dot(ray_direction, hit['tangent']),
-                 dot(ray_direction, hit['bitangent']),
-                 dot(ray_direction, hit['normal']))
-    hit_exterior = view[2] > 0.0
-    shape_priority = hit['shape']
-    is_real = torch.where(hit_exterior, medium['priority'] > shape_priority,
-                          medium['priority'] == shape_priority)
+        # Surface interaction (basic_scatter.glsl:177-309).
+        view = -vec3(dot(ray_direction, hit['tangent']),
+                     dot(ray_direction, hit['bitangent']),
+                     dot(ray_direction, hit['normal']))
+        hit_exterior = view[2] > 0.0
+        shape_priority = hit['shape']
+        is_real = torch.where(hit_exterior, medium['priority'] > shape_priority,
+                              medium['priority'] == shape_priority)
 
-    # Exterior IOR on the other side of the interface.
-    if scene_has_medium:
-        exclude = torch.where(active_shapes == active_shape, SHAPE_INDEX_NONE,
-                              active_shapes)
-        exterior_shape = torch.amin(exclude, dim=0)
-        exterior_medium = fetch_medium(packed, exterior_shape, lam, types)
-        exterior_ior = torch.where(hit_exterior, medium['ior'],
-                                   torch.where(is_real, exterior_medium['ior'],
-                                               1.0))
-        exterior_ior = torch.where(is_real, exterior_ior, 1.0)
-    else:
-        exterior_ior = torch.ones((4, n_lanes), device=view.device)
+        # Exterior IOR on the other side of the interface.
+        if scene_has_medium:
+            with profiling.span('pt.scatter.medium'):
+                exclude = torch.where(active_shapes == active_shape,
+                                      SHAPE_INDEX_NONE, active_shapes)
+                exterior_shape = torch.amin(exclude, dim=0)
+                exterior_medium = fetch_medium(packed, exterior_shape, lam, types)
+                exterior_ior = torch.where(
+                    hit_exterior, medium['ior'],
+                    torch.where(is_real, exterior_medium['ior'], 1.0))
+                exterior_ior = torch.where(is_real, exterior_ior, 1.0)
+        else:
+            exterior_ior = torch.ones((4, n_lanes), device=view.device)
 
-    ctx = fetch_ctx(packed, hit['material'], lam, hit['uv'], exterior_ior,
-                    layout.materials_textured, layout.atlas_size, types,
-                    layout.texture_filter_modes, layout.textured_attrs,
-                    layout.atlas_quad_fit)
+        with profiling.span('pt.scatter.material'):
+            ctx = fetch_ctx(packed, hit['material'], lam, hit['uv'], exterior_ior,
+                            layout.materials_textured, layout.atlas_size, types,
+                            layout.texture_filter_modes, layout.textured_attrs,
+                            layout.atlas_quad_fit)
+        profiling.count('pt.scatter.surface_lanes_by_type', ctx['type'],
+                        bins=dispatch.TYPE_NAMES, where=surface_event)
 
-    # Stochastic transparency: with probability (1 - opacity) the ray
-    # passes straight through the surface, with no BSDF event, emission,
-    # medium bookkeeping or roulette.
-    if layout.has_opacity:
-        opacity = packed.materials.opacity[hit['material']]
-        ghost = surface_event & (rng.uniform() >= opacity)
-    else:
-        ghost = torch.zeros_like(sky_hit)
+        # Stochastic transparency: with probability (1 - opacity) the ray
+        # passes straight through the surface, with no BSDF event, emission,
+        # medium bookkeeping or roulette.
+        if layout.has_opacity:
+            opacity = packed.materials.opacity[hit['material']]
+            ghost = surface_event & (rng.uniform() >= opacity)
+        else:
+            ghost = torch.zeros_like(sky_hit)
 
-    # Surface emission (OpenPBR area lights) on real exterior hits,
-    # before the BSDF extends the path.
-    emission_spec = dispatch.surface_emission(ctx, types)
-    emissive_hit = surface_event & is_real & hit_exterior & ~ghost
-    emit_contrib = _observe(observer, emission_spec * throughput) / cluster_pdf
-    sample = torch.where(emissive_hit, sample + emit_contrib, sample)
+        # Surface emission (OpenPBR area lights) on real exterior hits,
+        # before the BSDF extends the path.
+        emission_spec = dispatch.surface_emission(ctx, types)
+        emissive_hit = surface_event & is_real & hit_exterior & ~ghost
+        emit_contrib = _observe(observer, emission_spec * throughput) / cluster_pdf
+        sample = torch.where(emissive_hit, sample + emit_contrib, sample)
 
-    scattered, s_throughput, s_probability, s_valid = _sample_surface_integrand(
-        packed, ctx, hit, view, rng, types,
-        sky_sampling=layout.has_skybox_sampling)
+        scattered, s_throughput, s_probability, s_valid = _sample_surface_integrand(
+            packed, ctx, hit, view, rng, types,
+            sky_sampling=layout.has_skybox_sampling)
 
-    scale = 1.0 / torch.clamp(max4(s_probability), min=EPSILON)
-    surf_throughput = torch.where(is_real, throughput * s_throughput * scale,
-                                  throughput)
-    surf_probability = torch.where(is_real, probability * s_probability * scale,
-                                   probability)
-    in_dir = torch.where(is_real, scattered, -view)
-    surf_valid = torch.where(is_real, s_valid, torch.ones_like(s_valid))
+        scale = 1.0 / torch.clamp(max4(s_probability), min=EPSILON)
+        surf_throughput = torch.where(is_real, throughput * s_throughput * scale,
+                                      throughput)
+        surf_probability = torch.where(is_real, probability * s_probability * scale,
+                                       probability)
+        in_dir = torch.where(is_real, scattered, -view)
+        surf_valid = torch.where(is_real, s_valid, torch.ones_like(s_valid))
 
-    # Active-shape list bookkeeping on boundary crossings
-    # (basic_scatter.glsl:266-292). Where no material of the scene can
-    # refract (not has_transmissive) nothing is ever inserted or removed,
-    # so the block is dropped. The first free slot and the first match
-    # are the smallest slot index under the mask; LIMIT where there is
-    # none, which equals no slot (a full list takes no insert).
-    if not layout.has_transmissive:
-        new_active = active_shapes
-    else:
-        crossing = in_dir[2] * view[2] < 0.0
-        entering = crossing & hit_exterior & surface_event
-        leaving = crossing & ~hit_exterior & surface_event
+        # Active-shape list bookkeeping on boundary crossings
+        # (basic_scatter.glsl:266-292). Where no material of the scene can
+        # refract (not has_transmissive) nothing is ever inserted or removed,
+        # so the block is dropped. The first free slot and the first match
+        # are the smallest slot index under the mask; LIMIT where there is
+        # none, which equals no slot (a full list takes no insert).
+        if not layout.has_transmissive:
+            new_active = active_shapes
+        else:
+            crossing = in_dir[2] * view[2] < 0.0
+            entering = crossing & hit_exterior & surface_event
+            leaving = crossing & ~hit_exterior & surface_event
 
-        slots = torch.arange(ACTIVE_SHAPE_LIMIT, dtype=torch.int32,
-                             device=view.device)[:, None]
-        first_none = torch.amin(torch.where(active_shapes == SHAPE_INDEX_NONE,
-                                            slots, ACTIVE_SHAPE_LIMIT), dim=0)
-        new_active = torch.where(entering & (slots == first_none),
-                                 hit['shape'], active_shapes)
+            slots = torch.arange(ACTIVE_SHAPE_LIMIT, dtype=torch.int32,
+                                 device=view.device)[:, None]
+            first_none = torch.amin(torch.where(active_shapes == SHAPE_INDEX_NONE,
+                                                slots, ACTIVE_SHAPE_LIMIT), dim=0)
+            new_active = torch.where(entering & (slots == first_none),
+                                     hit['shape'], active_shapes)
 
-        first_match = torch.amin(torch.where(new_active == hit['shape'], slots,
-                                             ACTIVE_SHAPE_LIMIT), dim=0)
-        new_active = torch.where(leaving & (slots == first_match),
-                                 SHAPE_INDEX_NONE, new_active)
-        new_active = torch.where(surface_event & ~ghost, new_active,
-                                 active_shapes)
+            first_match = torch.amin(torch.where(new_active == hit['shape'], slots,
+                                                 ACTIVE_SHAPE_LIMIT), dim=0)
+            new_active = torch.where(leaving & (slots == first_match),
+                                     SHAPE_INDEX_NONE, new_active)
+            new_active = torch.where(surface_event & ~ghost, new_active,
+                                     active_shapes)
 
-    # Russian roulette (basic_scatter.glsl:294-298).
-    u_rr = rng.uniform()
-    rr_survive = u_rr >= term
-    surf_probability = surf_probability * (1.0 - term)
+        # Russian roulette (basic_scatter.glsl:294-298).
+        u_rr = rng.uniform()
+        rr_survive = u_rr >= term
+        surf_probability = surf_probability * (1.0 - term)
 
-    surf_dir = normalize(in_dir[0] * hit['tangent'] + in_dir[1] * hit['bitangent']
-                         + in_dir[2] * hit['normal'])
-    # Self-intersection offset scaled with the hit distance.
-    surf_eps = torch.clamp(1e-4 * hit['time'], min=1e-3)
-    surf_origin = hit['position'] + surf_eps * surf_dir
+        surf_dir = normalize(in_dir[0] * hit['tangent'] + in_dir[1] * hit['bitangent']
+                             + in_dir[2] * hit['normal'])
+        # Self-intersection offset scaled with the hit distance.
+        surf_eps = torch.clamp(1e-4 * hit['time'], min=1e-3)
+        surf_origin = hit['position'] + surf_eps * surf_dir
 
-    # Merge the three branches.
-    def merge(vol, sky, surf):
-        out = torch.where(sky_hit, sky, surf)
-        return torch.where(vol_scatter, vol, out) if scene_has_medium else out
+        # Merge the three branches.
+        def merge(vol, sky, surf):
+            out = torch.where(sky_hit, sky, surf)
+            return torch.where(vol_scatter, vol, out) if scene_has_medium else out
 
-    new_throughput = merge(vol_throughput, throughput, surf_throughput)
-    new_probability = merge(vol_probability, torch.zeros_like(probability),
-                            surf_probability)
-    new_sample = torch.where(sky_hit, sky_sample, sample)
-    new_origin = merge(vol_origin, ray_origin, surf_origin)
-    new_direction = merge(vol_dir, ray_direction, surf_dir)
+        new_throughput = merge(vol_throughput, throughput, surf_throughput)
+        new_probability = merge(vol_probability, torch.zeros_like(probability),
+                                surf_probability)
+        new_sample = torch.where(sky_hit, sky_sample, sample)
+        new_origin = merge(vol_origin, ray_origin, surf_origin)
+        new_direction = merge(vol_dir, ray_direction, surf_dir)
 
-    if layout.has_opacity:
-        new_direction = torch.where(ghost, ray_direction, new_direction)
-        new_origin = torch.where(ghost, hit['position'] + surf_eps * ray_direction,
-                                 new_origin)
-        new_throughput = torch.where(ghost, throughput, new_throughput)
-        new_probability = torch.where(ghost, probability, new_probability)
+        if layout.has_opacity:
+            new_direction = torch.where(ghost, ray_direction, new_direction)
+            new_origin = torch.where(ghost, hit['position'] + surf_eps * ray_direction,
+                                     new_origin)
+            new_throughput = torch.where(ghost, throughput, new_throughput)
+            new_probability = torch.where(ghost, probability, new_probability)
 
-    alive = max4(new_probability) > EPSILON
-    alive &= torch.where(surface_event & ~ghost, surf_valid & rr_survive,
-                         torch.ones_like(alive))
-    alive &= ~sky_hit
+        alive = max4(new_probability) > EPSILON
+        alive &= torch.where(surface_event & ~ghost, surf_valid & rr_survive,
+                             torch.ones_like(alive))
+        alive &= ~sky_hit
 
-    new_state = dict(
-        lambda0=state['lambda0'],
-        throughput=new_throughput,
-        probability=new_probability,
-        sample=new_sample,
-        active_shapes=new_active,
-    )
-    return new_state, new_origin, new_direction, alive
+        new_state = dict(
+            lambda0=state['lambda0'],
+            throughput=new_throughput,
+            probability=new_probability,
+            sample=new_sample,
+            active_shapes=new_active,
+        )
+        return new_state, new_origin, new_direction, alive

@@ -26,7 +26,7 @@ import torch
 from ..core.constants import RENDER_FLAG_ACCUMULATE, RENDER_FLAG_SAMPLE_JITTER
 from ..core.sampling import Rng
 from ..ops.intersect import SceneLayout, trace
-from ..utils import log
+from ..utils import log, profiling
 from .scatter import scatter
 from .state import merge_paths, new_paths
 
@@ -96,32 +96,41 @@ def reset(packed, config: RenderConfig, seed, slot=None):
 def render_round(packed, layout: SceneLayout, config: RenderConfig,
                  rs, termination_probability, sort_rays=False):
     """One round, in place on the state dict `rs`: trace, scatter,
-    accumulate the samples of terminated paths, respawn them."""
-    hit = trace(packed, layout, rs['origin'], rs['direction'],
-                sort_rays=sort_rays)
-    rng = Rng(rs['rng_state'])
-    path, origin, direction, alive = scatter(
-        packed, rs['path'], rs['origin'], rs['direction'], hit, rng,
-        termination_probability, layout)
+    accumulate the samples of terminated paths, respawn them.
 
-    dead = ~alive
-    accum = rs['accum']
-    if config.flags & RENDER_FLAG_ACCUMULATE:
-        accum['xyz'] = accum['xyz'] + torch.where(
-            dead, path['sample'], torch.zeros_like(path['sample']))
-        accum['count'] = accum['count'] + dead.to(torch.float32)
-    else:
-        accum['xyz'] = torch.where(dead, path['sample'], accum['xyz'])
-        accum['count'] = torch.where(dead, torch.ones_like(accum['count']),
-                                     accum['count'])
+    `trace` and `scatter` are looked up here as this module's names at
+    every call (the benchmark wraps them there); each opens its own span.
+    """
+    with profiling.span('pt.round'):
+        profiling.count('pt.rounds')
+        hit = trace(packed, layout, rs['origin'], rs['direction'],
+                    sort_rays=sort_rays)
+        rng = Rng(rs['rng_state'])
+        path, origin, direction, alive = scatter(
+            packed, rs['path'], rs['origin'], rs['direction'], hit, rng,
+            termination_probability, layout)
 
-    fresh, cam_origin, cam_direction = new_paths(
-        packed, config.camera_index, config.camera_model,
-        config.width, config.height, rng, config.flags, rs['lane'])
-    rs['path'] = merge_paths(path, fresh, dead)
-    rs['origin'] = torch.where(dead, cam_origin, origin)
-    rs['direction'] = torch.where(dead, cam_direction, direction)
-    rs['rng_state'] = rng.state
+        dead = ~alive
+        accum = rs['accum']
+        with profiling.span('pt.accumulate'):
+            if config.flags & RENDER_FLAG_ACCUMULATE:
+                accum['xyz'] = accum['xyz'] + torch.where(
+                    dead, path['sample'], torch.zeros_like(path['sample']))
+                accum['count'] = accum['count'] + dead.to(torch.float32)
+            else:
+                accum['xyz'] = torch.where(dead, path['sample'], accum['xyz'])
+                accum['count'] = torch.where(dead, torch.ones_like(accum['count']),
+                                             accum['count'])
+
+        with profiling.span('pt.respawn'):
+            profiling.count('pt.respawn.lanes', dead)
+            fresh, cam_origin, cam_direction = new_paths(
+                packed, config.camera_index, config.camera_model,
+                config.width, config.height, rng, config.flags, rs['lane'])
+            rs['path'] = merge_paths(path, fresh, dead)
+            rs['origin'] = torch.where(dead, cam_origin, origin)
+            rs['direction'] = torch.where(dead, cam_direction, direction)
+        rs['rng_state'] = rng.state
     return rs
 
 

@@ -21,6 +21,7 @@ from ..core.constants import (
     MATERIAL_TYPE_BASIC_TRANSLUCENT,
     MATERIAL_TYPE_OPENPBR,
 )
+from ..utils import profiling
 from . import basic_diffuse, basic_metal, basic_translucent, openpbr
 
 _MODELS = {
@@ -30,6 +31,12 @@ _MODELS = {
     MATERIAL_TYPE_OPENPBR: openpbr,
 }
 _ALL_TYPES = tuple(_MODELS)
+# Each model's short name, indexed by its material type: the bins of the
+# `pt.scatter.surface_lanes_by_type` counter and the names of its spans.
+TYPE_NAMES = tuple(_MODELS[t].__name__.rsplit('.', 1)[-1]
+                   for t in sorted(_MODELS))
+_SAMPLE_SPANS = {t: f'pt.model.{TYPE_NAMES[t]}.sample' for t in _MODELS}
+_LANE_COUNTS = {t: f'pt.model.{TYPE_NAMES[t]}.lanes' for t in _MODELS}
 
 
 def active_types(types):
@@ -61,16 +68,20 @@ def has_dirac_bsdf(ctx, types=()):
 def sample_bsdf(ctx, view, rng, types=()):
     """MaterialSampleBSDF over all lanes. Every model shares the same
     three uniforms, so lane streams stay aligned; OpenPBR's layer walk
-    draws its own from `rng` after them."""
+    draws its own from `rng` after them. Each model runs on every lane,
+    in a span `pt.model.<name>.sample`, and counts them in
+    `pt.model.<name>.lanes`."""
     u1 = rng.uniform()
     u2 = rng.uniform()
     u3 = rng.uniform()
     results = {}
     for t in active_types(types):
-        if t == MATERIAL_TYPE_OPENPBR:
-            results[t] = openpbr.sample_bsdf(ctx, view, u1, u2, u3, rng)
-        else:
-            results[t] = _MODELS[t].sample_bsdf(ctx, view, u1, u2, u3)
+        profiling.count(_LANE_COUNTS[t], view.shape[1])
+        with profiling.span(_SAMPLE_SPANS[t]):
+            if t == MATERIAL_TYPE_OPENPBR:
+                results[t] = openpbr.sample_bsdf(ctx, view, u1, u2, u3, rng)
+            else:
+                results[t] = _MODELS[t].sample_bsdf(ctx, view, u1, u2, u3)
     return _select(ctx['type'], results)
 
 

@@ -46,6 +46,7 @@ from ..core.vec import (
     transform_vector,
     vec3,
 )
+from ..utils import profiling
 from . import trace_inst, trace_packet
 
 MAX_LEAF_FACES = 4   # faces per BVH2 leaf (scene/bvh.py)
@@ -608,58 +609,65 @@ def trace(packed, layout: SceneLayout, origin, direction,
     warp. use_packet False: the portable BVH2 traversal, one instance
     slot after the other.
     """
-    n = origin.shape[1]
-    hit = make_hit(n, duration, origin.device)
-    hit = intersect_analytic(packed, layout, origin, direction, hit)
+    with profiling.span('pt.trace'):
+        n = origin.shape[1]
+        hit = make_hit(n, duration, origin.device)
+        hit = intersect_analytic(packed, layout, origin, direction, hit)
 
-    if layout.instance_slots and use_packet in (None, True):
-        k_origin, k_direction, k_tin = origin, direction, hit['time']
-        if sort_rays:
-            perm = torch.argsort(ray_sort_key(packed, origin, direction),
-                                 stable=True)
-            k_origin, k_direction, k_tin = _permute(perm, origin, direction,
-                                                    hit['time'])
-            k_origin, k_direction = k_origin.contiguous(), k_direction.contiguous()
-        if layout.packet_mode == 'inst':
-            out = trace_inst.inst_trace(
-                packed.inst_nodes, packed.inst_tris, packed.inst_rows,
-                k_origin, k_direction, k_tin.contiguous(),
-                tlas_rows=layout.tlas_rows)
-        else:
-            out = trace_packet.wide_trace5(
-                packed.wide_nodes_g, packed.wide_tris_g, k_origin,
-                k_direction, k_tin.contiguous())
-        if sort_rays:
-            out = _unpermute(perm, *out)
-        if layout.packet_mode == 'inst':
-            t, face, fu, fv, inst = out
-            normal, uv, shp = trace_inst.resolve_inst_attributes(
-                packed.inst_attrs, packed.inst_aux, face, fu, fv, inst,
-                n_instances=layout.instance_slots)
-        else:
-            t, face, fu, fv = out
-            normal, uv, shp = trace_packet.resolve_wide_attributes(
-                packed.wide_attrs, face, fu, fv)
-        improved = face >= 0
-        hit = dict(
-            time=torch.where(improved, t, hit['time']),
-            shape=torch.where(improved, shp, hit['shape']),
-            shape_type=torch.where(
-                improved, torch.full_like(hit['shape_type'], SHAPE_TYPE_MESH_INSTANCE),
-                hit['shape_type']),
-            # Face slot into the trace tables.
-            primitive=torch.where(improved, face, hit['primitive']),
-            coords=hit['coords'],
-            # The kernels' own per-ray counters are not read here: no
-            # render round launches the counting instantiation (nor does
-            # the JAX package's trace). viewer/preview.py reads them.
-            complexity=hit['complexity'],
-            mesh_normal=torch.where(improved, safe_normalize(normal),
-                                    torch.zeros_like(normal)),
-            mesh_uv=torch.where(improved, uv, torch.zeros_like(uv)),
-        )
-    else:
-        # Padded slots point at the degenerate root, which no ray enters.
+        if layout.instance_slots and use_packet in (None, True):
+            k_origin, k_direction, k_tin = origin, direction, hit['time']
+            if sort_rays:
+                perm = torch.argsort(ray_sort_key(packed, origin, direction),
+                                     stable=True)
+                k_origin, k_direction, k_tin = _permute(perm, origin, direction,
+                                                        hit['time'])
+                k_origin, k_direction = k_origin.contiguous(), k_direction.contiguous()
+            k_tin = k_tin.contiguous()
+            with profiling.span('pt.trace.kernel'):
+                if layout.packet_mode == 'inst':
+                    out = trace_inst.inst_trace(
+                        packed.inst_nodes, packed.inst_tris, packed.inst_rows,
+                        k_origin, k_direction, k_tin, tlas_rows=layout.tlas_rows)
+                else:
+                    out = trace_packet.wide_trace5(
+                        packed.wide_nodes_g, packed.wide_tris_g, k_origin,
+                        k_direction, k_tin)
+            if sort_rays:
+                out = _unpermute(perm, *out)
+            with profiling.span('pt.trace.attributes'):
+                if layout.packet_mode == 'inst':
+                    t, face, fu, fv, inst = out
+                    normal, uv, shp = trace_inst.resolve_inst_attributes(
+                        packed.inst_attrs, packed.inst_aux, face, fu, fv, inst,
+                        n_instances=layout.instance_slots)
+                else:
+                    t, face, fu, fv = out
+                    normal, uv, shp = trace_packet.resolve_wide_attributes(
+                        packed.wide_attrs, face, fu, fv)
+                improved = face >= 0
+                hit = dict(
+                    time=torch.where(improved, t, hit['time']),
+                    shape=torch.where(improved, shp, hit['shape']),
+                    shape_type=torch.where(
+                        improved,
+                        torch.full_like(hit['shape_type'], SHAPE_TYPE_MESH_INSTANCE),
+                        hit['shape_type']),
+                    # Face slot into the trace tables.
+                    primitive=torch.where(improved, face, hit['primitive']),
+                    coords=hit['coords'],
+                    # The kernels' own per-ray counters are not read here: no
+                    # render round launches the counting instantiation (nor does
+                    # the JAX package's trace). viewer/preview.py reads them.
+                    complexity=hit['complexity'],
+                    mesh_normal=torch.where(improved, safe_normalize(normal),
+                                            torch.zeros_like(normal)),
+                    mesh_uv=torch.where(improved, uv, torch.zeros_like(uv)),
+                )
+                return resolve_hit_attributes(packed, layout, origin, direction,
+                                              hit)
+
+        # The portable traversal. Padded slots point at the degenerate
+        # root, which no ray enters.
         for k in range(layout.instance_slots):
             shape_index = int(packed.portable_inst_shape[k])
             from_world = packed.shape_object_from_world[:, :, shape_index]
@@ -667,4 +675,5 @@ def trace(packed, layout: SceneLayout, origin, direction,
                 packed, int(packed.portable_inst_root[k]),
                 transform_point(from_world, origin),
                 transform_vector(from_world, direction), hit, shape_index)
-    return resolve_hit_attributes(packed, layout, origin, direction, hit)
+        with profiling.span('pt.trace.attributes'):
+            return resolve_hit_attributes(packed, layout, origin, direction, hit)

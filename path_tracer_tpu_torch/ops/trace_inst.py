@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..scene import bvh8
+from ..utils import profiling
 
 STACK_DEPTH = 128
 INST_BASE = 1 << 22      # stack entries >= INST_BASE are instance tags
@@ -46,18 +47,6 @@ LEAF_FMTS = {'mt': 0, 'bary': 1, 'woop': 2}
 
 VARIANTS = ('tuned', 'simple')
 WARP_STATS = 12          # csrc/traverse.cuh
-
-# Kernel launches made through inst_trace (CUDA tensors only): of the
-# kernel the render path runs, and of the baseline kernel.
-launches = 0
-launches_simple = 0
-
-
-def reset_launches():
-    global launches, launches_simple
-    launches = 0
-    launches_simple = 0
-
 
 def safe_inv(d):
     tiny = torch.where(d >= 0, torch.full_like(d, 1e-8), torch.full_like(d, -1e-8))
@@ -330,7 +319,6 @@ def anatomy_record(per_ray, warps, rows):
 
 def _inst_trace_cuda(nodes, tris, inst_rows, origin, direction, t_in,
                      tlas_rows, leaf_fmt, stats, variant, anatomy):
-    global launches, launches_simple
     dev = origin.device
     n = origin.shape[-1]
     for name, x in (('nodes', nodes), ('tris', tris), ('inst_rows', inst_rows)):
@@ -356,10 +344,8 @@ def _inst_trace_cuda(nodes, tris, inst_rows, origin, direction, t_in,
                  per_ray, warps, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'inst_trace kernel launch failed: cudaError {err}')
-    if variant == 'simple':
-        launches_simple += 1
-    else:
-        launches += 1
+    profiling.count('kernel.inst_trace_simple' if variant == 'simple'
+                    else 'kernel.inst_trace')
     out = (t, face, fu, fv, inst)
     if stats:
         out += (per_ray[:5],)
@@ -378,10 +364,10 @@ def inst_trace(nodes, tris, inst_rows, origin, direction, t_in, tlas_rows,
     per-ray interior pops, leaf pops, leaf rows tested, instance entries
     and triangles in the tested rows when `stats`.
     CUDA tensors launch a CUDA kernel: csrc/trace_inst.cu (counted in
-    `launches`), or csrc/trace_inst_simple.cu (counted in
-    `launches_simple`) for variant='simple'. `anatomy` appends the dict
-    of `anatomy_record`: what the kernel measured of itself in that
-    launch. CPU tensors run `inst_trace_plain`, with the pop cull unless
+    utils/profiling.py as `kernel.inst_trace`), or
+    csrc/trace_inst_simple.cu (`kernel.inst_trace_simple`) for
+    variant='simple'. `anatomy` appends the dict of `anatomy_record`:
+    what the kernel measured of itself in that launch. CPU tensors run `inst_trace_plain`, with the pop cull unless
     variant='simple'.
     """
     leaf_fmt = bvh8.LEAF_FMT if leaf_fmt is None else leaf_fmt

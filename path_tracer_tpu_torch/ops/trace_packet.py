@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..scene import bvh8
+from ..utils import profiling
 from .trace_inst import (
     CULL_SLACK, LEAF_FMTS, VARIANTS, anatomy_record, check_tensor, leaf_tests,
     safe_inv, stats_buffers)
@@ -47,18 +48,6 @@ from .trace_inst import (
 STACK_DEPTH = 96
 PASS_LIMIT = 0.5 * bvh8.BIG
 LEAF_ROWS = bvh8.LEAF_MAX // 8
-
-# Kernel launches made through wide_trace5 (CUDA tensors only): of the
-# kernel the render path runs, and of the baseline kernel.
-launches = 0
-launches_simple = 0
-
-
-def reset_launches():
-    global launches, launches_simple
-    launches = 0
-    launches_simple = 0
-
 
 def traverse_plain(nodes, origin, direction, t, leaf, leaf_rows,
                    tris_per_row, cull, stack_depth=STACK_DEPTH):
@@ -197,7 +186,6 @@ def check_rays(nodes, tris, origin, direction, t_in):
 
 def _wide_trace5_cuda(nodes, tris_g, origin, direction, t_in, leaf_fmt, stats,
                       variant, anatomy):
-    global launches, launches_simple
     dev, n = check_rays(nodes, tris_g, origin, direction, t_in)
     if leaf_fmt not in LEAF_FMTS:
         raise NotImplementedError(f'leaf format {leaf_fmt!r}')
@@ -216,10 +204,8 @@ def _wide_trace5_cuda(nodes, tris_g, origin, direction, t_in, leaf_fmt, stats,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'wide_trace5 kernel launch failed: cudaError {err}')
-    if variant == 'simple':
-        launches_simple += 1
-    else:
-        launches += 1
+    profiling.count('kernel.wide_trace5_simple' if variant == 'simple'
+                    else 'kernel.wide_trace5')
     out = (t, face, fu, fv)
     if stats:
         out += (per_ray[:4],)
@@ -240,9 +226,10 @@ def wide_trace5(nodes, tris_g, origin, direction, t_in, leaf_fmt=None,
     rows; these are each ray's own counts, not the JAX kernel's
     per-grid-step packet counts.
     CUDA tensors launch a CUDA kernel: csrc/trace_packet.cu (counted in
-    `launches`), or csrc/trace_packet_simple.cu (counted in
-    `launches_simple`) for variant='simple'. `anatomy` appends the
-    dict of `trace_inst.anatomy_record`. CPU tensors run
+    utils/profiling.py as `kernel.wide_trace5`), or
+    csrc/trace_packet_simple.cu (`kernel.wide_trace5_simple`) for
+    variant='simple'. `anatomy` appends the dict of
+    `trace_inst.anatomy_record`. CPU tensors run
     `wide_trace5_plain`, with the pop cull unless variant='simple'.
     """
     leaf_fmt = bvh8.LEAF_FMT if leaf_fmt is None else leaf_fmt

@@ -31,22 +31,11 @@ from __future__ import annotations
 import torch
 
 from ..scene import bvh8
+from ..utils import profiling
 from .trace_inst import VARIANTS, anatomy_record, stats_buffers
 from .trace_packet import STACK_DEPTH, check_rays, traverse_plain
 
 LEAF_ROWS = bvh8.LEAF_MAX // bvh8.TRIS_PER_ROW
-
-# Kernel launches made through wide_trace (CUDA tensors only): of the
-# redesigned kernel, and of the baseline kernel.
-launches = 0
-launches_simple = 0
-
-
-def reset_launches():
-    global launches, launches_simple
-    launches = 0
-    launches_simple = 0
-
 
 def wide_trace_plain(wide_nodes, wide_tris, origin, direction, t_in,
                      stats=False, cull=True, stack_depth=STACK_DEPTH):
@@ -116,7 +105,6 @@ def wide_trace_plain(wide_nodes, wide_tris, origin, direction, t_in,
 
 def _wide_trace_cuda(wide_nodes, wide_tris, origin, direction, t_in, stats,
                      variant, anatomy):
-    global launches, launches_simple
     dev, n = check_rays(wide_nodes, wide_tris, origin, direction, t_in)
     if variant not in VARIANTS:
         raise ValueError(f'unknown kernel variant {variant!r}')
@@ -134,10 +122,8 @@ def _wide_trace_cuda(wide_nodes, wide_tris, origin, direction, t_in, stats,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'wide_trace kernel launch failed: cudaError {err}')
-    if variant == 'simple':
-        launches_simple += 1
-    else:
-        launches += 1
+    profiling.count('kernel.wide_trace_simple' if variant == 'simple'
+                    else 'kernel.wide_trace')
     out = (t, face, normal, uv, shape)
     if stats:
         out += (per_ray[:4],)
@@ -157,8 +143,9 @@ def wide_trace(wide_nodes, wide_tris, origin, direction, t_in, stats=False,
     each ray's own counts, not the JAX kernel's per-grid-step packet
     counts.
     CUDA tensors launch a CUDA kernel: csrc/trace_wide.cu (counted in
-    `launches`), or csrc/trace_wide_simple.cu (counted in
-    `launches_simple`) for variant='simple'. `anatomy` appends the dict
+    utils/profiling.py as `kernel.wide_trace`), or
+    csrc/trace_wide_simple.cu (`kernel.wide_trace_simple`) for
+    variant='simple'. `anatomy` appends the dict
     of `trace_inst.anatomy_record`. CPU tensors run `wide_trace_plain`,
     with the pop cull unless variant='simple'.
     """

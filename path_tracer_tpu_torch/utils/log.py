@@ -1,4 +1,5 @@
-# Copied from path_tracer_tpu/utils/log.py (numpy-only host code shared with the JAX package).
+# From path_tracer_tpu/utils/log.py; here the clock is time.perf_counter and
+# `timer` opens a span of utils/profiling.py.
 """Structured (JSON-lines) event logging.
 
 The reference has no logging subsystem at all -- progress is visible
@@ -13,13 +14,19 @@ Enable with the environment variable ``PT_LOG``:
   PT_LOG=/path/x.jsonl  events appended to a file
 
 or programmatically via `enable(sink)`. Events carry a monotonic
-timestamp (`ts`, seconds since process start so runs diff cleanly), the
+timestamp (`ts`, seconds of `time.perf_counter()` since this module was
+imported, the clock of the program's spans in utils/profiling.py), the
 event `kind`, and arbitrary fields::
 
-  {"ts": 12.081, "kind": "render.rounds", "rounds": 64, "s": 24.9}
+  {"ts": 12.081, "kind": "render.dispatch", "rounds": 64, "s": 24.9}
+
+`timer` also opens a span named after its kind (utils/profiling.py), so
+its region shows on a traced timeline beside the program's spans. A
+timer's `s` is host time: `render.dispatch`'s is the time the rounds
+took to enqueue, not to render, since nothing in it synchronises.
 
 Emitters in the framework: scene compile stages (`compile.pack`),
-render driver calls (`render.rounds`), session restarts
+render driver calls (`render.dispatch`), session restarts
 (`session.restart`), checkpoint IO, benchmark phases, and device
 failure/recovery (`utils/resilience.py`).
 """
@@ -32,7 +39,9 @@ import sys
 import threading
 import time
 
-_T0 = time.time()
+from . import profiling
+
+_T0 = time.perf_counter()
 _state = {'fh': None}
 _lock = threading.Lock()
 
@@ -70,7 +79,7 @@ def event(kind, **fields):
     fh = _state['fh']
     if fh is None:
         return
-    rec = {'ts': round(time.time() - _T0, 3), 'kind': kind}
+    rec = {'ts': round(time.perf_counter() - _T0, 3), 'kind': kind}
     for k, v in fields.items():
         rec[k] = _coerce(v)
     line = json.dumps(rec, default=str)
@@ -79,7 +88,8 @@ def event(kind, **fields):
 
 
 class timer:
-    """Context manager that logs `kind` with the region's wall time.
+    """Context manager that logs `kind` with the region's host time, in
+    a span of the same name.
 
     Extra fields pass through; set more via `.fields` inside the body::
 
@@ -93,11 +103,14 @@ class timer:
         self.fields = fields
 
     def __enter__(self):
-        self._t0 = time.time()
+        self._span = profiling.span(self.kind)
+        self._span.__enter__()
+        self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        self.fields['s'] = round(time.time() - self._t0, 4)
+        self.fields['s'] = round(time.perf_counter() - self._t0, 4)
+        self._span.__exit__(exc_type, exc, tb)
         if exc_type is not None:
             self.fields['error'] = exc_type.__name__
         event(self.kind, **self.fields)

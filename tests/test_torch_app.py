@@ -361,22 +361,32 @@ def test_generic_compile_matches_jax():
 
 
 def test_ray_throughput_timer_and_trace(tmp_path):
-    """utils/profiling: Mrays/s over the rounds measured (every round
-    traces one ray per lane), and a torch.profiler trace written where
-    asked."""
+    """utils/profiling.device_trace: a torch.profiler trace written where
+    asked, with the program's tracing on inside it, so that the Chrome
+    trace holds each program span as an event around the operators
+    launched in it, and the span records and counts stay readable after
+    it."""
+    import json
     import os
-    from path_tracer_tpu_torch.utils.profiling import (
-        RayThroughputTimer, device_trace)
+    from path_tracer_tpu_torch.utils import profiling
 
-    timer = RayThroughputTimer(lanes=1000)
-    assert timer.mrays_per_second == 0.0
-    x = torch.zeros(4)
-    for _ in range(2):
-        with timer.measure(rounds=3, sync_tensor=x):
-            x += 1
-    assert timer.rounds == 6 and timer.elapsed > 0.0
-    assert timer.mrays_per_second == pytest.approx(
-        1000 * 6 / timer.elapsed / 1e6)
-    with device_trace(str(tmp_path / 'trace')) as log_dir:
-        torch.ones(8).sum()
-    assert os.path.getsize(os.path.join(log_dir, 'trace.json')) > 0
+    with profiling.device_trace(str(tmp_path / 'trace')) as log_dir:
+        assert profiling.enabled()
+        with profiling.span('pt.round'):
+            with profiling.span('pt.scatter'):
+                torch.ones(8).sum()
+            profiling.count('pt.respawn.lanes', torch.ones(8, dtype=torch.bool))
+    assert not profiling.enabled()
+    with open(os.path.join(log_dir, 'trace.json')) as f:
+        events = json.load(f)['traceEvents']
+    spans = {e['name']: e for e in events if e.get('name', '').startswith('pt.')}
+    assert {'pt.round', 'pt.scatter'} <= set(spans)
+    outer, inner = spans['pt.round'], spans['pt.scatter']
+    assert outer['ts'] <= inner['ts'] <= inner['ts'] + inner['dur'] <= (
+        outer['ts'] + outer['dur'])
+    assert any(e.get('name') == 'aten::sum'
+               and inner['ts'] <= e['ts'] <= inner['ts'] + inner['dur']
+               for e in events)
+    assert [r[0] for r in profiling.records()] == ['pt.round', 'pt.scatter']
+    assert profiling.counters() == {'pt.respawn.lanes': 8}
+    profiling.reset()

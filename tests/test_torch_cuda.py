@@ -25,6 +25,13 @@ from path_tracer_tpu_torch.core.constants import (
     MATERIAL_TYPE_BASIC_DIFFUSE, MATERIAL_TYPE_BASIC_METAL,
     MATERIAL_TYPE_BASIC_TRANSLUCENT, MATERIAL_TYPE_OPENPBR,
     TEXTURE_TYPE_RADIANCE, TEXTURE_TYPE_REFLECTANCE_WITH_ALPHA)
+from path_tracer_tpu_torch.utils import profiling
+
+
+def launches(kernel):
+    """Launches of the hand-written kernel `kernel` (utils/profiling.py's
+    `kernel.<name>` counter)."""
+    return profiling.counters().get('kernel.' + kernel, 0)
 
 
 def blob_scene(m, n_instances=6, seed=7):
@@ -315,11 +322,11 @@ def test_kernel_matches_plain_version(cuda, leaf_fmt, monkeypatch):
     tables = (packed.inst_nodes, packed.inst_tris, packed.inst_rows)
     o, d, t_in = _random_rays(rng, 8192, cuda)
     tlas = packed.host_layout.tlas_rows
-    before = trace_inst.launches
+    before = launches('inst_trace')
     kernel = trace_inst.inst_trace(*tables, o, d, t_in, tlas)
     counted = trace_inst.inst_trace(*tables, o, d, t_in, tlas, stats=True)
     torch.cuda.synchronize()
-    assert trace_inst.launches == before + 2
+    assert launches('inst_trace') == before + 2
     plain = trace_inst.inst_trace_plain(*tables, o, d, t_in, tlas,
                                         leaf_fmt=leaf_fmt, stats=True)
     assert int((plain[1] >= 0).sum()) > 30
@@ -358,11 +365,11 @@ def test_wide_trace5_kernel_matches_plain_version(cuda, leaf_fmt, monkeypatch):
     nodes, tris = (torch.from_numpy(x).to(cuda) for x in bvh8.pack_wide_geom(
         bvh8.build_wide_bvh(*soup), *soup)[:2])
     o, d, t_in = _random_rays(rng, 8192, cuda)
-    before = trace_packet.launches
+    before = launches('wide_trace5')
     kernel = trace_packet.wide_trace5(nodes, tris, o, d, t_in)
     counted = trace_packet.wide_trace5(nodes, tris, o, d, t_in, stats=True)
     torch.cuda.synchronize()
-    assert trace_packet.launches == before + 2
+    assert launches('wide_trace5') == before + 2
     plain = trace_packet.wide_trace5_plain(nodes, tris, o, d, t_in,
                                            leaf_fmt=leaf_fmt, stats=True)
     assert int((plain[1] >= 0).sum()) > 30
@@ -385,11 +392,11 @@ def test_wide_trace_kernel_matches_plain_version(cuda):
     nodes = torch.from_numpy(wide.nodes).to(cuda)
     tris = torch.from_numpy(wide.tris).to(cuda)
     o, d, t_in = _random_rays(rng, 8192, cuda)
-    before = trace_wide.launches
+    before = launches('wide_trace')
     kernel = trace_wide.wide_trace(nodes, tris, o, d, t_in)
     counted = trace_wide.wide_trace(nodes, tris, o, d, t_in, stats=True)
     torch.cuda.synchronize()
-    assert trace_wide.launches == before + 2
+    assert launches('wide_trace') == before + 2
     plain = trace_wide.wide_trace_plain(nodes, tris, o, d, t_in, stats=True)
     assert int((plain[1] >= 0).sum()) > 30
     for name, k, c, p in zip(('t', 'face', 'normal', 'uv', 'shape'), kernel,
@@ -478,19 +485,17 @@ def test_simple_kernel_matches_plain_version_without_cull(cuda, kernel,
     per-ray counter equal to the bit. Against the redesigned kernel t is
     equal on these rays and the pops are no fewer."""
     import path_tracer_tpu_torch.scene.bvh8 as bvh8
-    from path_tracer_tpu_torch.ops import trace_inst, trace_packet, trace_wide
 
     monkeypatch.setattr(bvh8, 'LEAF_FMT', leaf_fmt)
     rng = np.random.default_rng(9)
     run, plain = _redesigned_kernel(kernel, leaf_fmt, rng, cuda)
     o, d, t_in = _random_rays(rng, 8192, cuda)
-    module = dict(inst_trace=trace_inst, wide_trace5=trace_packet,
-                  wide_trace=trace_wide)[kernel]
-    before = (module.launches, module.launches_simple)
+    before = (launches(kernel), launches(kernel + '_simple'))
     simple = run(o, d, t_in, stats=True, variant='simple')
     uncounted = run(o, d, t_in, variant='simple')
     torch.cuda.synchronize()
-    assert (module.launches, module.launches_simple) == (before[0], before[1] + 2)
+    assert (launches(kernel), launches(kernel + '_simple')) == (before[0],
+                                                               before[1] + 2)
     want = plain(o, d, t_in, stats=True, cull=False)
     assert int((want[1] >= 0).sum()) > 30
     for k, p in zip(simple, want):
@@ -620,7 +625,6 @@ def test_waves_render_on_card_matches_cpu(cuda):
     import path_tracer_tpu_torch as tpkg
     import path_tracer_tpu_torch.scene.model as model
     import path_tracer_tpu_torch.scene.procedural as proc
-    from path_tracer_tpu_torch.ops import trace_inst
 
     def frame(device):
         packed = tpkg.compile_scene(textured_scene(model, proc),
@@ -630,9 +634,9 @@ def test_waves_render_on_card_matches_cpu(cuda):
         return tpkg.resolve(state['accum'], 32, 16, lane=state['lane'])
 
     ref = frame('cpu').numpy()
-    trace_inst.reset_launches()
+    profiling.reset()
     img = frame(cuda).cpu().numpy()
-    assert trace_inst.launches == 4
+    assert launches('inst_trace') == 4
     rel = np.abs(img - ref).mean() / (ref.mean() + 1e-3)
     bias = abs(img.mean() - ref.mean()) / (ref.mean() + 1e-3)
     assert rel < 0.02 and bias < 0.02, (rel, bias)
@@ -684,10 +688,10 @@ def test_session_preview_and_heatmap_on_card(cuda):
     from path_tracer_tpu_torch.viewer import preview
 
     session = Session(textured_scene(model, proc), 64, 32, device=cuda)
-    trace_inst.reset_launches()
+    profiling.reset()
     for _ in range(3):
         img = session.frame()
-    assert trace_inst.launches == 3 and img.is_cuda
+    assert launches('inst_trace') == 3 and img.is_cuda
     for mode in range(7):
         frame = session.preview(mode=mode)
         assert tuple(frame.shape) == (32, 64, 3)
@@ -774,7 +778,6 @@ def test_viewer_server_frame_on_card(cuda):
     import path_tracer_tpu_torch.scene.model as model
     import path_tracer_tpu_torch.scene.procedural as proc
     from path_tracer_tpu_torch.app import Session
-    from path_tracer_tpu_torch.ops import trace_inst
     from path_tracer_tpu_torch.viewer.server import ViewerServer
 
     session = Session(textured_scene(model, proc), 64, 32, device=cuda)
@@ -782,15 +785,15 @@ def test_viewer_server_frame_on_card(cuda):
     server.serve_background()
     base = f'http://127.0.0.1:{server.port}'
     try:
-        trace_inst.reset_launches()
+        profiling.reset()
         png = urllib.request.urlopen(base + '/frame.png?mode=render').read()
-        assert png[:8] == b'\x89PNG\r\n\x1a\n' and trace_inst.launches == 1
+        assert png[:8] == b'\x89PNG\r\n\x1a\n' and launches('inst_trace') == 1
         req = urllib.request.Request(base + '/material/update', data=json.dumps(
             {'index': 0, 'field': 'base_color', 'value': [0.9, 0.1, 0.1]}
         ).encode(), method='POST')
         urllib.request.urlopen(req).read()
         after = urllib.request.urlopen(base + '/frame.png?mode=render').read()
-        assert after != png and trace_inst.launches == 3
+        assert after != png and launches('inst_trace') == 3
         assert session.state['accum']['xyz'].is_cuda
     finally:
         server.shutdown()
