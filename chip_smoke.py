@@ -66,7 +66,13 @@ hand-written kernels against their plain PyTorch versions:
  13. the OpenPBR scene of tests/test_torch_cuda.py (coat, metal and
      translucent bases, emitters, the fallback material, nested glass, fog)
      at 96x48, 16 rounds, on the card and on the CPU: finite, not black,
-     within 2% mean absolute error and 2% bias of each other;
+     within 2% mean absolute error and 2% bias of each other; then
+     `openpbr_walk`: the OpenPBR walk kernel, which replaces no Pallas
+     kernel, and the plain walk in turns on the walk's inputs of a round
+     of the Cornell box at 2880x2880 (the benchmark's configuration):
+     times, the kernel's bound from its compulsory bytes, the lanes and
+     warps that walked, its `ptxas` registers and spills, and its
+     agreement with the plain walk;
  14. bench config 6 (`make_terrain_scene(side=900)`, 1.62M unique
      triangles) compiled once for 16:9: seconds, triangles, the bytes of
      every table;
@@ -510,6 +516,137 @@ def openpbr_card_vs_cpu(dev, width=96, height=48, rounds=16, seed=7):
             and rel < 0.02 and bias < 0.02):
         raise RuntimeError('the OpenPBR frames are black, not finite or '
                            'differ between the card and the CPU')
+
+
+def walk_bytes(openpbr, lanes, walking):
+    """Compulsory bytes of one walk launch with a lane mask: every lane
+    reads its type, mask and RNG state and writes the state and the four
+    outputs; a walking lane also reads the rest of its inputs once."""
+    def size(rows, dtype):
+        import torch
+        return max(rows, 1) * torch.empty((), dtype=dtype).element_size()
+
+    every = ('type', 'rng_state')
+    per_lane = (1 + sum(size(r, d) for n, d, r in openpbr.KERNEL_INPUTS
+                        if n in every)
+                + sum(size(r, d) for _, d, r in openpbr.KERNEL_OUTPUTS))
+    per_walk = sum(size(r, d) for n, d, r in openpbr.KERNEL_INPUTS
+                   if n not in every)
+    return lanes * per_lane + walking * per_walk
+
+
+def openpbr_walk_phase(dev, card, ptxas_records, seed=2 ** 31 + 13):
+    """Phase `openpbr_walk`: the walk kernel (csrc/openpbr_walk.cu) on the
+    8,294,400 lanes of the Cornell box's 2880x2880 state (the benchmark's
+    configuration, after its 4 warm-up rounds): the walk's inputs of the
+    next round are captured (the surface-event mask with them), then the
+    kernel and the plain walk run on them on the card, in turns. Logs
+    both times, the kernel's bound (its compulsory bytes over HBM
+    bandwidth), the lanes and warps that walked, `ptxas`'s registers and
+    spills, and the agreement with the plain walk on the lanes the kernel
+    walks (the RNG state equal to the bit on every lane, `valid` on >=
+    99.9% of them, the samples within 1e-5 relative on >= 99.9% of their
+    elements), which fails the run when it is not met. Returns the
+    record."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from benchmark.harness.cell import load_cell
+    from path_tracer_tpu_torch.core import constants
+    from path_tracer_tpu_torch.core.sampling import Rng
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.models import openpbr
+    from path_tracer_tpu_torch.ops.intersect import SceneLayout
+    from path_tracer_tpu_torch.scene import model
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+
+    cell = load_cell('cornell_box.offline_2880x2880')
+    api = types.SimpleNamespace(**{
+        k: v for m in (constants, model) for k, v in vars(m).items()
+        if not k.startswith('_')})
+    width, height = cell.traffic['width'], cell.traffic['height']
+    packed = compile_scene(cell.maker.make_scene(api, cell.config),
+                           aspect_ratio=width / height, device=dev)
+    layout = SceneLayout.from_packed(packed)
+    config = wavefront.RenderConfig(
+        width=width, height=height, flags=(constants.RENDER_FLAG_ACCUMULATE
+                                           | constants.RENDER_FLAG_SAMPLE_JITTER),
+        camera_model=packed.host_camera_models[0])
+    term = cell.traffic['termination_probability']
+    state = wavefront.reset(packed, config, seed)
+    wavefront.render(packed, config, cell.traffic['warmup_rounds'], state=state,
+                     layout=layout, termination_probability=term)
+    captured = {}
+    walk = openpbr.sample_bsdf
+
+    def capture(ctx, view, u1, u2, u3, rng, where=None):
+        captured.update(ctx={k: ctx[k] for k in openpbr.CTX_INPUTS},
+                        args=(view, u1, u2, u3), state=rng.state.clone(),
+                        where=where)
+        return walk(ctx, view, u1, u2, u3, rng, where)
+
+    openpbr.sample_bsdf = capture
+    try:
+        wavefront.render_round(packed, layout, config, state, term)
+    finally:
+        openpbr.sample_bsdf = walk
+    del state
+    cols, args, start = captured['ctx'], captured['args'], captured['state']
+    where = captured['where']
+    lanes = start.numel()
+    typed = cols['type'] == constants.MATERIAL_TYPE_OPENPBR
+    walks = typed & where
+    walking = int(walks.sum())
+
+    def kernel():
+        return openpbr.openpbr_walk(cols, *args, start, where=where)
+
+    def plain():
+        return openpbr.sample_bsdf_plain(cols, *args, Rng(start))
+
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    openpbr.openpbr_walk(cols, *args, start, where=where, stats=stats)
+    lanes_walked, walk_warps = stats.tolist()
+    out = kernel()
+    plain_rng = Rng(start)
+    ref = openpbr.sample_bsdf_plain(cols, *args, plain_rng)
+    rng_equal = bool(torch.equal(out[4], plain_rng.state))
+    valid_agree = (out[3][walks] == ref[3][walks]).float().mean().item()
+    within = []
+    for k, p in zip(out[:3], ref[:3]):
+        k, p = k[:, walks], p[:, walks]
+        ok = ((k - p).abs() <= 1e-6 + 1e-5 * p.abs()) | (k.isnan() & p.isnan())
+        within.append(ok.float().mean().item())
+    del out, ref
+    flush_buffer = torch.empty(96 * 2 ** 20, dtype=torch.float32, device=dev)
+    ms = time_in_turns({'kernel': kernel, 'plain': plain}, TIMING_REPS)
+    ms_cold = cuda_ms(kernel, flush=flush_buffer.zero_)
+    del flush_buffer
+    nbytes = walk_bytes(openpbr, lanes, walking)
+    bound_ms = 1e3 * nbytes / PEAK_BYTES_S
+    regs = [r for r in ptxas_records if r['source'] == 'openpbr_walk.cu']
+    rec = dict(
+        nvidia_smi=card, lanes=lanes, openpbr_typed_lanes=int(typed.sum()),
+        surface_lanes=int(where.sum()), openpbr_lanes=walking,
+        openpbr_lane_pct=100.0 * walking / lanes, lanes_walked=lanes_walked,
+        warps=-(-lanes // 32), walk_warps=walk_warps,
+        walk_warp_pct=100.0 * walk_warps / -(-lanes // 32),
+        kernel_ms=ms['kernel'], kernel_ms_cold=ms_cold, plain_ms=ms['plain'],
+        speedup=ms['plain'] / ms['kernel'], bound_ms=bound_ms, bound_by='bytes',
+        compulsory_bytes=nbytes, roofline_pct=100.0 * bound_ms / ms['kernel'],
+        registers=[r['registers'] for r in regs],
+        spill_bytes=[r['spill_store_bytes'] + r['spill_load_bytes']
+                     for r in regs],
+        rng_equal=rng_equal, valid_agree=valid_agree,
+        within_1e5=dict(zip(('in_dir', 'throughput', 'density'), within)))
+    log('openpbr_walk', **rec)
+    if not (rng_equal and valid_agree >= 0.999 and min(within) >= 0.999
+            and lanes_walked == walking and walking > 0):
+        raise RuntimeError('the OpenPBR walk kernel disagrees with the plain '
+                           'walk on the Cornell box')
+    return rec
 
 
 def tree_map(fn, tree):
@@ -1438,7 +1575,7 @@ def main():
     build.load()
     log('build', seconds=time.perf_counter() - t0, ninja=shutil.which('ninja'),
         sources=sorted(os.listdir(build.CSRC)))
-    read_ptxas(ptxas)
+    ptxas_records = read_ptxas(ptxas)
     lap('build')
 
     # -- 3. compile the flagship scene: both modes, three leaf formats ---
@@ -1826,6 +1963,11 @@ def main():
     openpbr_card_vs_cpu(dev)
     lap('openpbr')
 
+    # -- 13b. the OpenPBR walk kernel on the Cornell box's 2880x2880 lanes ----
+    records['openpbr_walk'] = openpbr_walk_phase(dev, card, ptxas_records)
+    torch.cuda.empty_cache()
+    lap('openpbr_walk')
+
     # -- 14-18. bench config 6 at 1920x1080 with 1 and 4 waves ----------------
     torch.cuda.empty_cache()
     terrain, terrain_layout, inst_bytes = terrain_compile(dev, WIDTH, HEIGHT)
@@ -1889,7 +2031,8 @@ def main():
     sources = dict(
         inst_trace=('trace_inst.cu', 'path_tracer_tpu/ops/trace_inst.py:149'),
         wide_trace5=('trace_packet.cu', 'path_tracer_tpu/ops/trace_packet.py:85'),
-        wide_trace=('trace_wide.cu', 'path_tracer_tpu/ops/trace_wide.py:97'))
+        wide_trace=('trace_wide.cu', 'path_tracer_tpu/ops/trace_wide.py:97'),
+        openpbr_walk=('openpbr_walk.cu', None))
     print(json.dumps({'kernels': [dict(
         name=name, route='cuda',
         source='path_tracer_tpu_torch/csrc/' + sources[name][0],

@@ -1,9 +1,15 @@
 // Python bindings of the CUDA kernels in this directory: the one source
 // of the extension that includes PyTorch's headers. Each kernel file
-// exports a plain C launch function; the Python wrappers (ops/*.py)
-// check devices, dtypes and shapes before they call in here.
+// exports a plain C launch function; the Python wrappers (ops/*.py,
+// models/openpbr.py) check devices, dtypes and shapes before they call in
+// here.
 
+#include <c10/cuda/CUDAException.h>
 #include <torch/extension.h>
+
+#include <vector>
+
+#include "openpbr_walk.h"
 
 extern "C" int inst_trace_launch(const float* nodes, const float* tris,
                                  const float* inst_rows, const float* origin,
@@ -157,6 +163,55 @@ int wide_trace_simple(const torch::Tensor& nodes, const torch::Tensor& tris,
       reinterpret_cast<void*>(stream));
 }
 
+// Queues csrc/openpbr_walk.cu: `in` and `out` hold the tensors of
+// models/openpbr.py's KERNEL_INPUTS and KERNEL_OUTPUTS in their order (the
+// fields of OpenpbrWalkArgs), `where` is empty or the (N,) bool mask of the
+// lanes whose sample is used, `stats` empty or the kernel's two int64
+// counters. Raises if the launch was refused.
+void openpbr_walk(const std::vector<torch::Tensor>& in,
+                  const std::vector<torch::Tensor>& out,
+                  const torch::Tensor& where, torch::Tensor& stats,
+                  int64_t stream) {
+  TORCH_CHECK(in.size() == 25 && out.size() == 5,
+              "openpbr_walk takes 25 inputs and 5 outputs");
+  OpenpbrWalkArgs a;
+  a.n = in[0].numel();
+  a.type = in[0].data_ptr<int32_t>();
+  a.lam = in[1].data_ptr<float>();
+  a.exterior_ior = in[2].data_ptr<float>();
+  a.base_weight = in[3].data_ptr<float>();
+  a.base_reflectance = in[4].data_ptr<float>();
+  a.base_metalness = in[5].data_ptr<float>();
+  a.base_diffuse_roughness = in[6].data_ptr<float>();
+  a.specular_weight = in[7].data_ptr<float>();
+  a.specular_reflectance = in[8].data_ptr<float>();
+  a.specular_ior = in[9].data_ptr<float>();
+  a.roughness = in[10].data_ptr<float>();
+  a.roughness_anisotropy = in[11].data_ptr<float>();
+  a.transmission_weight = in[12].data_ptr<float>();
+  a.transmission_dispersion_abbe = in[13].data_ptr<float>();
+  a.coat_weight = in[14].data_ptr<float>();
+  a.coat_spectrum = in[15].data_ptr<float>();
+  a.coat_ior = in[16].data_ptr<float>();
+  a.coat_roughness = in[17].data_ptr<float>();
+  a.coat_roughness_anisotropy = in[18].data_ptr<float>();
+  a.layer_bounce_limit = in[19].data_ptr<int32_t>();
+  a.view = in[20].data_ptr<float>();
+  a.u1 = in[21].data_ptr<float>();
+  a.u2 = in[22].data_ptr<float>();
+  a.u3 = in[23].data_ptr<float>();
+  a.rng_state = in[24].data_ptr<int64_t>();
+  a.where = where.numel() ? where.data_ptr<bool>() : nullptr;
+  a.in_dir = out[0].data_ptr<float>();
+  a.throughput = out[1].data_ptr<float>();
+  a.density = out[2].data_ptr<float>();
+  a.valid = out[3].data_ptr<bool>();
+  a.rng_state_out = out[4].data_ptr<int64_t>();
+  a.stats = stats.numel() ? stats.data_ptr<int64_t>() : nullptr;
+  openpbr_walk_launch(&a, reinterpret_cast<void*>(stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -173,4 +228,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("wide_trace_simple", &wide_trace_simple,
         "The baseline flat traversal with attributes "
         "(csrc/trace_wide_simple.cu)");
+  m.def("openpbr_walk", &openpbr_walk,
+        "The OpenPBR BSDF sample, one thread a lane (csrc/openpbr_walk.cu)");
 }

@@ -104,12 +104,13 @@ def _observe(observer, weighted):
 
 
 def _sample_surface_integrand(packed, ctx, hit, view, rng: Rng, types,
-                              sky_sampling=True):
+                              sky_sampling=True, where=None):
     """SampleSurfaceIntegrand (basic_scatter.glsl:66-109): one-sample MIS
     between BSDF importance sampling and vMF skybox light sampling.
     view: (3, N) toward the viewer in tangent space. Returns (scattered
     (3, N), throughput (4, N), probability (4, N), valid (N,)).
-    Without sky sampling the light-branch draws are still consumed."""
+    Without sky sampling the light-branch draws are still consumed.
+    `where`: the lanes whose result is used (dispatch.sample_bsdf)."""
     if sky_sampling:
         has_dirac = dispatch.has_dirac_bsdf(ctx, types)
         light_probability = torch.where(
@@ -126,7 +127,7 @@ def _sample_surface_integrand(packed, ctx, hit, view, rng: Rng, types,
                                         mean_local)
     with profiling.span('pt.scatter.bsdf_sample'):
         bsdf_dir, bsdf_thr, bsdf_pdf, bsdf_ok = dispatch.sample_bsdf(
-            ctx, view, rng, types)
+            ctx, view, rng, types, where)
     if not sky_sampling:
         return bsdf_dir, bsdf_thr, bsdf_pdf, bsdf_ok
     with profiling.span('pt.scatter.bsdf_eval'):
@@ -274,9 +275,10 @@ def scatter(packed, state, ray_origin, ray_direction, hit, rng: Rng,
         emit_contrib = _observe(observer, emission_spec * throughput) / cluster_pdf
         sample = torch.where(emissive_hit, sample + emit_contrib, sample)
 
+        # Only the surface events use the sample.
         scattered, s_throughput, s_probability, s_valid = _sample_surface_integrand(
             packed, ctx, hit, view, rng, types,
-            sky_sampling=layout.has_skybox_sampling)
+            sky_sampling=layout.has_skybox_sampling, where=surface_event)
 
         scale = 1.0 / torch.clamp(max4(s_probability), min=EPSILON)
         surf_throughput = torch.where(is_real, throughput * s_throughput * scale,

@@ -3,7 +3,11 @@
 Port of path_tracer_tpu/models/dispatch.py. The reference branches per
 GPU thread (scene.glsl.inc:687-764); here, as in the JAX package, every
 lane evaluates every model of the scene and the results are selected by
-material type. `types` is the static set from SceneLayout.material_types:
+material type, with one exception: on the card OpenPBR's sample branches
+per lane too, inside one kernel (csrc/openpbr_walk.cu) that walks only
+the OpenPBR lanes whose sample is used; its other lanes are never
+selected.
+`types` is the static set from SceneLayout.material_types:
 a scene without an OpenPBR material never runs the 8-bounce layer walk,
 and a diffuse-only scene runs one model with no selects. An empty tuple
 means all four models. Lanes whose type is not in the set (missed rays
@@ -65,22 +69,27 @@ def has_dirac_bsdf(ctx, types=()):
                                  for t in active_types(types)})
 
 
-def sample_bsdf(ctx, view, rng, types=()):
+def sample_bsdf(ctx, view, rng, types=(), where=None):
     """MaterialSampleBSDF over all lanes. Every model shares the same
     three uniforms, so lane streams stay aligned; OpenPBR's layer walk
-    draws its own from `rng` after them. Each model runs on every lane,
-    in a span `pt.model.<name>.sample`, and counts them in
-    `pt.model.<name>.lanes`."""
+    draws its own from `rng` after them. `where` ((N,) bool, or None for
+    every lane) holds the lanes whose sample the caller uses: OpenPBR's
+    kernel on the card walks no other lane (their samples are not valid);
+    every other model, and the plain walk, computes every lane. Each
+    model runs in a span `pt.model.<name>.sample` and counts the lanes it
+    ran on in `pt.model.<name>.lanes`: every lane, except OpenPBR's kernel
+    on the card, which counts the lanes it walked (models/openpbr.py)."""
     u1 = rng.uniform()
     u2 = rng.uniform()
     u3 = rng.uniform()
     results = {}
     for t in active_types(types):
-        profiling.count(_LANE_COUNTS[t], view.shape[1])
         with profiling.span(_SAMPLE_SPANS[t]):
             if t == MATERIAL_TYPE_OPENPBR:
-                results[t] = openpbr.sample_bsdf(ctx, view, u1, u2, u3, rng)
+                results[t] = openpbr.sample_bsdf(ctx, view, u1, u2, u3, rng,
+                                                 where)
             else:
+                profiling.count(_LANE_COUNTS[t], view.shape[1])
                 results[t] = _MODELS[t].sample_bsdf(ctx, view, u1, u2, u3)
     return _select(ctx['type'], results)
 

@@ -12,6 +12,14 @@ package, base emission is wired into the integrator.
 The BSDF is sample-only (no closed-form evaluate), so it reports Dirac
 to the MIS machinery: skybox light sampling is off on OpenPBR surfaces.
 
+`sample_bsdf` launches the hand-written kernel csrc/openpbr_walk.cu for
+CUDA tensors: one thread a lane, walking only the lanes whose material is
+OpenPBR (and whose sample the caller uses), each through the one layer
+it is in at each bounce. For CPU tensors it runs `sample_bsdf_plain`,
+the same walk in PyTorch over every lane, computing all three layers'
+samples at each bounce and selecting. There is no fallback from one to
+the other.
+
 Channels-first: directions (3, N), spectra (4, N). `view` points toward
 the viewer; `scattered` is the sampled light direction.
 """
@@ -35,6 +43,8 @@ from ..core.sampling import (
 )
 from ..core.spectrum import sample_parametric_spectrum
 from ..core.vec import dot, max4, safe_normalize, vec3
+from ..ops.trace_inst import check_tensor
+from ..utils import profiling
 
 # Static unroll bound for the layer walk; per-lane material limits mask
 # further bounces (the reference default is 16, openpbr.hpp:37).
@@ -44,6 +54,51 @@ LAYER_EXTERNAL = -1
 LAYER_COAT = 0
 LAYER_BASE_SPECULAR = 1
 LAYER_BASE_DIFFUSE = 2
+
+# The kernel's tensors, in the order of csrc/openpbr_walk.h's
+# OpenpbrWalkArgs: (name, dtype, rows; 0 for an (N,) column). The inputs
+# are the ctx columns the walk reads, then the sample's own inputs.
+KERNEL_INPUTS = (
+    ('type', torch.int32, 0),
+    ('lam', torch.float32, 4),
+    ('exterior_ior', torch.float32, 4),
+    ('base_weight', torch.float32, 0),
+    ('base_reflectance', torch.float32, 4),
+    ('base_metalness', torch.float32, 0),
+    ('base_diffuse_roughness', torch.float32, 0),
+    ('specular_weight', torch.float32, 0),
+    ('specular_reflectance', torch.float32, 4),
+    ('specular_ior', torch.float32, 0),
+    ('roughness', torch.float32, 0),
+    ('roughness_anisotropy', torch.float32, 0),
+    ('transmission_weight', torch.float32, 0),
+    ('transmission_dispersion_abbe', torch.float32, 0),
+    ('coat_weight', torch.float32, 0),
+    ('coat_spectrum', torch.float32, 3),
+    ('coat_ior', torch.float32, 0),
+    ('coat_roughness', torch.float32, 0),
+    ('coat_roughness_anisotropy', torch.float32, 0),
+    ('layer_bounce_limit', torch.int32, 0),
+    ('view', torch.float32, 3),
+    ('u1', torch.float32, 0),
+    ('u2', torch.float32, 0),
+    ('u3', torch.float32, 0),
+    ('rng_state', torch.int64, 0),
+)
+CTX_INPUTS = tuple(name for name, _, _ in KERNEL_INPUTS[:-5])
+KERNEL_OUTPUTS = (
+    ('in_dir', torch.float32, 3),
+    ('throughput', torch.float32, 4),
+    ('density', torch.float32, 4),
+    ('valid', torch.bool, 0),
+    ('rng_state', torch.int64, 0),
+)
+# Counters (utils/profiling.py): lanes the walk ran on and warps that held
+# one of them (on the card device counts, kept while tracing is on; on the
+# CPU every lane and every 32 lanes), and the warps launched (host).
+LANES = 'pt.model.openpbr.lanes'
+WALK_WARPS = 'pt.model.openpbr.walk_warps'
+WARPS = 'pt.model.openpbr.warps'
 
 
 def has_dirac_bsdf(ctx):
@@ -274,8 +329,76 @@ def _base_diffuse_sample(p, out_dir, u1, u2):
             torch.zeros_like(passthrough))
 
 
-def sample_bsdf(ctx, view, u1, u2, u3, rng):
-    """OpenPBR_Sample (openpbr.glsl.inc:463-515): layer random walk.
+def openpbr_walk(ctx, view, u1, u2, u3, rng_state, where=None, stats=None):
+    """Launch csrc/openpbr_walk.cu on CUDA tensors, counted as
+    `kernel.openpbr_walk`: the walk of `sample_bsdf_plain` on the lanes
+    whose ctx['type'] is OpenPBR and, when `where` (an (N,) bool tensor)
+    is given, that lie in it; every other lane's stream steps past the
+    walk's draws and its sample is not valid (zero throughput and
+    density). Every tensor of KERNEL_INPUTS must be contiguous, of its
+    dtype and shape, on one card; `stats`, when given, is a (2,) int64
+    tensor to which the kernel adds the lanes it walked and the warps that
+    held one. Returns (in_dir, throughput, density, valid, rng_state)."""
+    dev = view.device
+    if dev.type != 'cuda':
+        raise ValueError(f'openpbr_walk runs on a CUDA device, not {dev}')
+    n = view.shape[-1]
+    given = dict(ctx, view=view, u1=u1, u2=u2, u3=u3, rng_state=rng_state)
+    inputs = []
+    for name, dtype, rows in KERNEL_INPUTS:
+        if name not in given:
+            raise ValueError(f'openpbr_walk needs ctx[{name!r}]')
+        check_tensor(name, given[name], dev, (rows, n) if rows else (n,), dtype)
+        inputs.append(given[name])
+    empty = torch.empty((0,), dtype=torch.int64, device=dev)
+    if where is None:
+        where = empty
+    else:
+        check_tensor('where', where, dev, (n,), torch.bool)
+    if stats is None:
+        stats = empty
+    else:
+        check_tensor('stats', stats, dev, (2,), torch.int64)
+    outputs = [torch.empty((rows, n) if rows else (n,), dtype=dtype, device=dev)
+               for _, dtype, rows in KERNEL_OUTPUTS]
+    from ..ops.build import load
+    load().openpbr_walk(inputs, outputs, where, stats,
+                        torch.cuda.current_stream(dev).cuda_stream)
+    profiling.count('kernel.openpbr_walk')
+    return tuple(outputs)
+
+
+def sample_bsdf(ctx, view, u1, u2, u3, rng, where=None):
+    """OpenPBR_Sample (openpbr.glsl.inc:463-515): the layer walk of
+    `sample_bsdf_plain`, through csrc/openpbr_walk.cu on CUDA tensors and
+    through `sample_bsdf_plain` on CPU tensors. Either way every lane
+    draws the same 24 uniforms from `rng`. `where` ((N,) bool, or None
+    for every lane) holds the lanes whose sample the caller uses: on the
+    card only the OpenPBR lanes in it walk, and the others' samples are
+    not valid; the plain walk computes every lane. Counts WARPS, and LANES
+    and WALK_WARPS as the constants above say."""
+    n = view.shape[1]
+    warps = (n + 31) // 32
+    profiling.count(WARPS, warps)
+    if view.device.type == 'cuda':
+        # fetch_ctx's columns come from gathers, texture taps and selects;
+        # the kernel reads each as contiguous rows (a copy only where one
+        # is not).
+        columns = {name: ctx[name].contiguous() for name in CTX_INPUTS}
+        *sample, rng.state = openpbr_walk(
+            columns, view, u1, u2, u3, rng.state, where=where,
+            stats=profiling.kernel_counts((LANES, WALK_WARPS), view.device))
+        return tuple(sample)
+    if view.device.type == 'cpu':
+        profiling.count(LANES, n)
+        profiling.count(WALK_WARPS, warps)
+        return sample_bsdf_plain(ctx, view, u1, u2, u3, rng)
+    raise ValueError(f'openpbr.sample_bsdf: unsupported device {view.device}')
+
+
+def sample_bsdf_plain(ctx, view, u1, u2, u3, rng):
+    """OpenPBR_Sample (openpbr.glsl.inc:463-515): layer random walk over
+    every lane, in PyTorch.
 
     u1/u2/u3 seed the per-evaluation parameter composition; the walk
     draws three fresh uniforms from `rng` in each of the

@@ -252,13 +252,13 @@ def leaf_tests(g, o, d, leaf_fmt, count, rr):
     return ft, fu, fv, ok
 
 
-def check_tensor(name, x, device, shape):
-    """Raise unless x is a contiguous float32 tensor of `shape` (None
+def check_tensor(name, x, device, shape, dtype=torch.float32):
+    """Raise unless x is a contiguous `dtype` tensor of `shape` (None
     matches any length) on the CUDA `device`."""
     if x.device != device:
         raise ValueError(f'{name} must lie on {device}, got {x.device}')
-    if x.dtype != torch.float32:
-        raise ValueError(f'{name} must be float32, got {x.dtype}')
+    if x.dtype != dtype:
+        raise ValueError(f'{name} must be {dtype}, got {x.dtype}')
     if not x.is_contiguous():
         raise ValueError(f'{name} must be contiguous')
     if x.dim() != len(shape) or any(

@@ -5,7 +5,10 @@ and `openpbr_scene` take the scene-model module (and the
 procedural module) of either package, so the JAX package and the port
 build the same scene from the same numbers;
 `flat_mode` compiles a mesh scene's world-flattened tables; `tied_leaf`
-builds `wide_trace`'s tables with one triangle in two slots of a leaf.
+builds `wide_trace`'s tables with one triangle in two slots of a leaf;
+`openpbr_ctx` makes the material columns of OpenPBR lanes (with
+`unit_directions` and `spectrum_beta`) for the JAX comparison and for the
+walk kernel's tests.
 
 The tests here launch the hand-written CUDA kernels (the ones the render
 paths run and the baseline `simple` ones) and compare them with their
@@ -227,6 +230,96 @@ def openpbr_scene(m, p):
     cam.pinhole.field_of_view_in_degrees = 60.0
     scene.root.scatter_rate = 0.05
     return scene
+
+
+def unit_directions(rng, n, z_sign=None):
+    """Unit directions (3, n); z_sign +1 / -1 keeps them on one side
+    (|z| > 0.02), None on both."""
+    v = rng.normal(0, 1, (3, n)).astype(np.float32)
+    if z_sign is not None:
+        v[2] = z_sign * (np.abs(v[2]) + 0.02)
+    return (v / np.linalg.norm(v, axis=0, keepdims=True)).astype(np.float32)
+
+
+def spectrum_beta(rng, n):
+    """Sigmoid-polynomial spectrum coefficients (3, n)."""
+    return np.stack([rng.uniform(-1e-5, 1e-5, n), rng.uniform(-5e-3, 5e-3, n),
+                     rng.uniform(-1, 3, n)]).astype(np.float32)
+
+
+def openpbr_ctx(rng, n, case='mixed', limit=16, roughness=None):
+    """OpenPBR context columns as numpy. `case` fixes the layer
+    composition: 'coat' (a coat over a dielectric base), 'no_coat',
+    'metal' (a metal base, coat on half the lanes), 'translucent' (a
+    translucent base, coat on half the lanes) or 'mixed' (random
+    weights); `limit` is every lane's layer bounce limit; `roughness`
+    'rough' or 'smooth' makes every base lane so (None: a quarter of them
+    smooth). The draws from `rng` are the same whatever the options.
+
+    The coats are nearly clear (transmittance 0.9 to 0.99, as the default
+    white coat color): the coat's absorption is the transmittance to the
+    power of the in-coat path length, which reaches 1e4 at grazing
+    angles, where a dark coat turns a last-bit difference of that length
+    into 1e-3. The coat IOR (1.3 to 1.45) stays apart from the base's
+    (1.6 to 1.9): at an index match the base's refraction half vectors
+    nearly vanish, as in tests/test_torch_media.py::translucent_ctx. The
+    rough base lanes have roughness 0.2 to 0.8, the smooth ones are
+    Dirac: the secondary wavelengths' refraction densities are GGX values
+    of their half vectors, and a lobe of alpha 0.01 (roughness 0.1)
+    divides a last-bit difference of a half vector by alpha."""
+    def u(lo, hi, shape=n):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def full(v):
+        return np.full(n, v, np.float32)
+
+    weights = dict(
+        coat=(full(1.0), full(0.0), full(0.0)),
+        no_coat=(full(0.0), full(0.0), full(0.0)),
+        metal=(full(0.5), full(1.0), full(0.0)),
+        translucent=(full(0.5), full(0.0), full(1.0)),
+        mixed=(u(0, 1), u(0, 1), u(0, 1)),
+    )[case]
+    def base_roughness():
+        smooth = rng.uniform(0, 1, n) < 0.25
+        rough = rng.uniform(0.2, 0.8, n)
+        if roughness is not None:
+            smooth = np.full(n, roughness == 'smooth')
+        return np.where(smooth, 5e-4, rough).astype(np.float32)
+
+    return dict(
+        type=np.full(n, MATERIAL_TYPE_OPENPBR, np.int32),
+        lam=u(380, 720, (4, n)),
+        exterior_ior=np.where(rng.uniform(0, 1, n) < 0.5, 1.0, 1.33)
+        .astype(np.float32) * np.ones((4, 1), np.float32),
+        base_reflectance=u(0.05, 0.95, (4, n)),
+        specular_reflectance=u(0.3, 1.0, (4, n)),
+        roughness=base_roughness(),
+        roughness_anisotropy=u(0, 0.8),
+        base_weight=u(0.5, 1.0),
+        base_metalness=weights[1],
+        base_diffuse_roughness=u(0, 1),
+        specular_weight=np.where(rng.uniform(0, 1, n) < 0.5, 1.0,
+                                 rng.uniform(0.2, 1.0, n)).astype(np.float32),
+        specular_ior=u(1.6, 1.9),
+        transmission_weight=weights[2],
+        transmission_spectrum=spectrum_beta(rng, n),
+        transmission_depth=np.where(rng.uniform(0, 1, n) < 0.25, 0.0,
+                                    rng.uniform(0.2, 2.0, n)).astype(np.float32),
+        transmission_scatter_spectrum=spectrum_beta(rng, n),
+        transmission_scatter_anisotropy=u(-0.9, 0.9),
+        transmission_dispersion_abbe=u(20, 60),
+        coat_weight=weights[0],
+        coat_spectrum=np.stack([u(-1e-6, 1e-6), u(-1e-3, 1e-3),
+                                u(2.5, 5.0)]),
+        coat_ior=u(1.3, 1.45),
+        coat_roughness=u(0.01, 0.5),
+        coat_roughness_anisotropy=u(0, 0.5),
+        emission_reflectance=u(0, 1, (4, n)),
+        emission_luminance=np.where(rng.uniform(0, 1, n) < 0.5, 0.0,
+                                    rng.uniform(0.5, 5, n)).astype(np.float32),
+        layer_bounce_limit=np.full(n, limit, np.int32),
+    )
 
 
 @contextlib.contextmanager
@@ -507,13 +600,18 @@ def test_simple_kernel_matches_plain_version_without_cull(cuda, kernel,
     assert bool((new[-1] <= simple[-1]).all())
 
 
-@pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5', 'wide_trace'])
+@pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5', 'wide_trace',
+                                    'openpbr_walk'])
 def test_kernel_anatomy(cuda, kernel):
     """What the kernels measure of themselves is consistent: efficiencies
     in (0, 1], at least one distinct row a pass, a stack at least one
     deep, the same results with the counters on, and culled pops only in
-    the kernel that culls."""
+    the kernel that culls. The walk counts the lanes it walked and the
+    warps that held one, exactly."""
     rng = np.random.default_rng(10)
+    if kernel == 'openpbr_walk':
+        _walk_anatomy(cuda, rng)
+        return
     run, _ = _redesigned_kernel(kernel, 'bary', rng, cuda)
     o, d, t_in = _random_rays(rng, 8192, cuda)
     for variant in ('tuned', 'simple'):
@@ -531,11 +629,15 @@ def test_kernel_anatomy(cuda, kernel):
         assert (rec['culled_pops_per_ray'] > 0) == (variant == 'tuned')
 
 
-@pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5', 'wide_trace'])
+@pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5', 'wide_trace',
+                                    'openpbr_walk'])
 def test_kernel_wrapper_rejects_bad_input(cuda, kernel):
     """Each wrapper checks device, dtype and shape before it launches."""
     from path_tracer_tpu_torch.ops import trace_inst, trace_packet, trace_wide
 
+    if kernel == 'openpbr_walk':
+        _walk_rejects_bad_input(cuda)
+        return
     nodes = torch.zeros((8, 128), device=cuda)
     tris = torch.zeros((2, 128), device=cuda)
     rows = torch.zeros((1, 128), device=cuda)
@@ -563,6 +665,240 @@ def test_kernel_wrapper_rejects_bad_input(cuda, kernel):
             trace_packet.wide_trace5(nodes, tris, o, o, t_in, variant='fast')
         else:
             trace_wide.wide_trace(nodes, tris, o, o, t_in, variant='fast')
+
+
+# The walk kernel's inputs: base -> (base_metalness, transmission_weight).
+WALK_BASES = {'metal': (1.0, 0.0), 'dielectric': (0.0, 0.0),
+              'translucent': (0.0, 1.0)}
+WALK_LANES = {'all': 8192, 'clusters': 2 ** 18}
+
+
+def walk_inputs(rng, n, limit, coat=None, base=None, roughness=None,
+                mix='all'):
+    """numpy inputs of the OpenPBR walk over n lanes: (ctx, view, [u1, u2,
+    u3]). `coat` (True / False) and `base` (a key of WALK_BASES) fix every
+    lane's layer composition (None: openpbr_ctx's random weights);
+    mix='clusters' gives 0.5% of the lanes the OpenPBR type, in runs of 1
+    to 64 lanes at random places, and the others a basic model's type.
+    Views come from outside the surface, from both sides where the base
+    is translucent (only a translucent base is hit from inside)."""
+    ctx = openpbr_ctx(rng, n, 'mixed', limit, roughness)
+    if coat is not None:
+        ctx['coat_weight'][:] = float(coat)
+    if base is not None:
+        ctx['base_metalness'][:], ctx['transmission_weight'][:] = WALK_BASES[base]
+    if mix == 'clusters':
+        walks = np.zeros(n, bool)
+        while walks.sum() < n // 200:
+            start = rng.integers(0, n - 64)
+            walks[start:start + rng.integers(1, 65)] = True
+        ctx['type'] = np.where(walks, MATERIAL_TYPE_OPENPBR,
+                               rng.integers(0, 3, n)).astype(np.int32)
+    view = unit_directions(rng, n, 1)
+    if base in ('translucent', None):
+        view = view * np.where(rng.uniform(0, 1, n) < 0.5, 1, -1).astype(np.float32)
+    u = [rng.uniform(0, 1, n).astype(np.float32) for _ in range(3)]
+    return ctx, view, u
+
+
+def _on(device, ctx, view, u):
+    return ({k: torch.from_numpy(v).to(device) for k, v in ctx.items()},
+            torch.from_numpy(view).to(device),
+            [torch.from_numpy(x).to(device) for x in u])
+
+
+def _off(a, b, lanes):
+    """(share of the elements of `lanes` at which a and b differ by more
+    than 1e-5 relative and 1e-6 absolute, largest relative difference
+    there); NaN matches NaN."""
+    a = a.cpu()[..., lanes].double()
+    b = b.cpu()[..., lanes].double()
+    diff = (a - b).abs()
+    same = (diff <= 1e-6 + 1e-5 * b.abs()) | (a.isnan() & b.isnan())
+    rel = torch.where(same, 0.0, diff / (b.abs() + 1e-6))
+    return 1.0 - same.double().mean().item(), rel.max().item()
+
+
+@pytest.mark.parametrize('mix', ['clusters', 'all'])
+@pytest.mark.parametrize('limit', [1, 3, 8])
+@pytest.mark.parametrize('roughness', ['rough', 'smooth'])
+@pytest.mark.parametrize('base', ['metal', 'dielectric', 'translucent'])
+@pytest.mark.parametrize('coat', [True, False], ids=['coat', 'no_coat'])
+def test_openpbr_walk_kernel_matches_plain_version(cuda, coat, base,
+                                                   roughness, limit, mix):
+    """csrc/openpbr_walk.cu (through openpbr.sample_bsdf on the card)
+    against sample_bsdf_plain on the same tensors moved to the CPU, with
+    0.5% of the lanes OpenPBR in clusters and with every lane OpenPBR.
+
+    Every lane draws the walk's 24 uniforms, so the advanced RNG state is
+    equal to the bit on every lane. On the OpenPBR lanes `valid` agrees
+    on at least 99.9% (a walk ends where a sign of z or a Fresnel choice
+    flips on a last-bit difference of a transcendental). The samples:
+    the card's sinf/cosf/powf differ from the CPU's in the last bit on a
+    few values in a hundred, and sqrt(1 - x^2) near x = 1 (a grazing
+    visible normal, a half vector at the lobe's edge) or a coat's
+    absorption at a grazing path multiplies such a difference many times
+    over on a few elements in a thousand, more so through 8 bounces; the
+    plain walk run in PyTorch on the card differs from the CPU's alike.
+    So the kernel is held to the plain walk on the card, with the same
+    transcendentals, within 1e-5 relative on at least 99.9% of the
+    elements and 2e-3 on all (tests/test_torch_metal.py::_close), and to
+    the CPU's within 1e-5 relative on at least 99.9% of the elements, or
+    on as many as the plain walk on the card reaches where its own
+    transcendentals keep it further off. The other lanes' samples are not
+    valid, with zero throughput and density."""
+    from path_tracer_tpu_torch.core.sampling import Rng
+    from path_tracer_tpu_torch.models import openpbr
+
+    n = WALK_LANES[mix]
+    rng = np.random.default_rng(50 + limit)
+    ctx, view, u = _on(cuda, *walk_inputs(rng, n, limit, coat, base,
+                                          roughness, mix))
+    stream = Rng.seed(torch.arange(n, device=cuda), 1000 + limit)
+    start = stream.state.clone()
+    before = launches('openpbr_walk')
+    out = openpbr.sample_bsdf(ctx, view, *u, stream)
+    torch.cuda.synchronize()
+    assert launches('openpbr_walk') == before + 1
+    card = openpbr.sample_bsdf_plain(ctx, view, *u, Rng(start))
+    cpu_stream = Rng(start.cpu())
+    cpu = openpbr.sample_bsdf_plain(
+        {k: v.cpu() for k, v in ctx.items()}, view.cpu(),
+        *[x.cpu() for x in u], cpu_stream)
+    assert torch.equal(stream.state.cpu(), cpu_stream.state)
+    walks = ctx['type'].cpu() == MATERIAL_TYPE_OPENPBR
+    assert int(walks.sum()) >= (n // 200 if mix == 'clusters' else n)
+    valid = out[3].cpu()
+    assert (valid[walks] == cpu[3][walks]).float().mean() >= 0.999
+    for name, k, c, p in zip(('in_dir', 'throughput', 'density'), out, card,
+                             cpu):
+        share, rel = _off(k, c, walks)
+        assert share <= 1e-3 and rel <= 2e-3, (name, 'card', share, rel)
+        share, _ = _off(k, p, walks)
+        assert share <= max(1e-3, _off(c, p, walks)[0]), (name, 'cpu', share)
+    others = ~walks
+    assert not bool(valid[others].any())
+    assert not bool(out[1].cpu()[:, others].any())
+    assert not bool(out[2].cpu()[:, others].any())
+
+
+def _walk_anatomy(cuda, rng):
+    """The walk's two counters on lanes 0.5% OpenPBR in clusters: the
+    OpenPBR lanes, and the warps of 32 lanes that hold one; its samples
+    and stream are the same with the counters on. With a lane mask only
+    the OpenPBR lanes in it walk and count, their samples are those of
+    the launch without the mask, and the others' are not valid."""
+    from path_tracer_tpu_torch.core.sampling import Rng
+    from path_tracer_tpu_torch.models import openpbr
+
+    n = 2 ** 16 + 17      # a last warp that is not full
+    ctx, view, u = _on(cuda, *walk_inputs(rng, n, 8, mix='clusters'))
+    state = Rng.seed(torch.arange(n, device=cuda), 3).state
+    cols = {k: ctx[k] for k in openpbr.CTX_INPUTS}
+    every = openpbr.openpbr_walk(cols, view, *u, state)
+    typed = (ctx['type'] == MATERIAL_TYPE_OPENPBR).cpu()
+    mask = torch.from_numpy(rng.uniform(0, 1, n) < 0.7)
+    for where in (None, mask):
+        stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+        counted = openpbr.openpbr_walk(
+            cols, view, *u, state, stats=stats,
+            where=None if where is None else where.to(cuda))
+        walks = typed if where is None else typed & where
+        assert torch.equal(counted[4], every[4])
+        for a, b in zip(counted[:4], every[:4]):
+            assert torch.equal(a.cpu()[..., walks], b.cpu()[..., walks])
+        in_dir, throughput, density, valid = (x.cpu()[..., ~walks]
+                                              for x in counted[:4])
+        assert bool((in_dir[:2] == 0).all() and (in_dir[2] == 1).all())
+        assert not (throughput.any() or density.any() or valid.any())
+        padded = torch.zeros(-(-n // 32) * 32, dtype=torch.bool)
+        padded[:n] = walks
+        lanes, warps = stats.tolist()
+        assert lanes == int(walks.sum()) > 0
+        assert warps == int(padded.reshape(-1, 32).any(1).sum())
+        assert 0 < warps < -(-n // 32)
+
+
+def _walk_rejects_bad_input(cuda):
+    """openpbr_walk raises on a tensor of another dtype, device, shape or
+    layout, on a missing column and on a stats buffer of another shape."""
+    from path_tracer_tpu_torch.models import openpbr
+
+    n = 64
+    ctx, view, u = _on(cuda, *walk_inputs(np.random.default_rng(11), n, 8))
+    cols = {k: ctx[k] for k in openpbr.CTX_INPUTS}
+    state = torch.zeros(n, dtype=torch.int64, device=cuda)
+
+    def run(view=view, u1=u[0], state=state, stats=None, **columns):
+        return openpbr.openpbr_walk(dict(cols, **columns), view, u1, u[1],
+                                    u[2], state, stats=stats)
+
+    run()
+    wide = torch.zeros((n, 4), device=cuda)
+    for bad in (dict(view=view.double()), dict(view=view.cpu()),
+                dict(view=view[:2]), dict(u1=u[0][:32]),
+                dict(state=state.int()), dict(type=cols['type'].long()),
+                dict(lam=wide.T), dict(coat_spectrum=cols['lam']),
+                dict(stats=torch.zeros(3, dtype=torch.int64, device=cuda))):
+        with pytest.raises(ValueError):
+            run(**bad)
+    with pytest.raises(ValueError):
+        openpbr.openpbr_walk({k: v for k, v in cols.items() if k != 'coat_ior'},
+                             view, *u, state)
+
+
+def test_openpbr_walk_on_the_main_path(cuda, monkeypatch):
+    """One round of the OpenPBR scene on the card with tracing on goes
+    through the walk kernel: one launch, at most 3 kernels launched inside
+    `pt.model.openpbr.sample` (the walk and the one-time zeroing of its
+    counters), `pt.model.openpbr.lanes` equal to the OpenPBR-typed lanes
+    of the round's surface events (a ray that left the scene carries the
+    fallback OpenPBR material but does not walk), and no more walking
+    warps than warps launched."""
+    import path_tracer_tpu_torch as tpkg
+    import path_tracer_tpu_torch.scene.model as model
+    import path_tracer_tpu_torch.scene.procedural as proc
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.models import openpbr
+    from path_tracer_tpu_torch.ops.intersect import SceneLayout
+
+    packed = tpkg.compile_scene(openpbr_scene(model, proc), aspect_ratio=2.0,
+                                device=cuda)
+    layout = SceneLayout.from_packed(packed)
+    config = wavefront.RenderConfig(width=96, height=48)
+    state = wavefront.reset(packed, config, seed=7)
+    wavefront.render_round(packed, layout, config, state, 0.05)
+    seen = []
+    walk = openpbr.sample_bsdf
+
+    def seen_walk(ctx, view, u1, u2, u3, rng, where):
+        seen.append((ctx['type'], where))    # counted after the round
+        return walk(ctx, view, u1, u2, u3, rng, where)
+
+    monkeypatch.setattr(openpbr, 'sample_bsdf', seen_walk)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof, \
+            profiling.tracing():
+        wavefront.render_round(packed, layout, config, state, 0.05)
+        torch.cuda.synchronize()
+        counted = profiling.counters()
+    assert counted['kernel.openpbr_walk'] == len(seen) == 1
+    typed = int(((seen[0][0] == MATERIAL_TYPE_OPENPBR) & seen[0][1]).sum())
+    assert counted['pt.model.openpbr.lanes'] == typed > 0
+    by_type = counted['pt.scatter.surface_lanes_by_type']
+    assert counted['pt.model.openpbr.lanes'] == by_type['openpbr']
+    assert 0 < counted['pt.model.openpbr.walk_warps'] \
+        <= counted['pt.model.openpbr.warps'] == -(-96 * 48 // 32)
+    events = prof.events()
+    spans = [e.time_range for e in events
+             if e.name == 'pt.model.openpbr.sample' and e.device_type ==
+             torch.autograd.DeviceType.CPU]
+    launched = [e.time_range.start for e in events
+                if 'LaunchKernel' in e.name and any(
+                    s.start <= e.time_range.start <= s.end for s in spans)]
+    assert len(spans) == 1
+    assert 1 <= len(launched) <= 3, [e.name for e in events if 'Launch' in e.name]
 
 
 @pytest.mark.parametrize('scene_name', ['textured_inst', 'metal_flat'])

@@ -37,24 +37,11 @@ from path_tracer_tpu_torch.integrator import wavefront as twavefront
 from path_tracer_tpu_torch.models import basic_translucent as ttrans
 
 from test_torch_cuda import flat_mode, glass_ball_scene
+from test_torch_cuda import spectrum_beta as _beta
+from test_torch_cuda import unit_directions as _unit
 from test_torch_metal import _close
 
 N = 4096
-
-
-def _unit(rng, n, z_sign=None):
-    """Unit directions (3, n); z_sign +1 / -1 keeps them on one side
-    (|z| > 0.02), None on both."""
-    v = rng.normal(0, 1, (3, n)).astype(np.float32)
-    if z_sign is not None:
-        v[2] = z_sign * (np.abs(v[2]) + 0.02)
-    return (v / np.linalg.norm(v, axis=0, keepdims=True)).astype(np.float32)
-
-
-def _beta(rng, n):
-    """Sigmoid-polynomial spectrum coefficients (3, n)."""
-    return np.stack([rng.uniform(-1e-5, 1e-5, n), rng.uniform(-5e-3, 5e-3, n),
-                     rng.uniform(-1, 3, n)]).astype(np.float32)
 
 
 def translucent_ctx(rng, n, roughness):

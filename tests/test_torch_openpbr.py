@@ -41,83 +41,17 @@ from path_tracer_tpu_torch.integrator import scatter as tscatter
 from path_tracer_tpu_torch.models import common as tcommon
 from path_tracer_tpu_torch.models import dispatch as tdispatch
 from path_tracer_tpu_torch.models import openpbr as tpbr
+from path_tracer_tpu_torch.utils import profiling
 
 from test_torch_compile import jax_fields, layout_fields
-from test_torch_cuda import openpbr_scene
-from test_torch_media import _beta, _unit, both, translucent_ctx
+from test_torch_cuda import openpbr_ctx, openpbr_scene
+from test_torch_media import _unit, both, translucent_ctx
 from test_torch_metal import _close
 from test_torch_scatter import _t
 
 N = 8192
 ALL = (MATERIAL_TYPE_BASIC_DIFFUSE, MATERIAL_TYPE_BASIC_METAL,
        MATERIAL_TYPE_BASIC_TRANSLUCENT, MATERIAL_TYPE_OPENPBR)
-
-
-def openpbr_ctx(rng, n, case='mixed', limit=16):
-    """OpenPBR context columns as numpy. `case` fixes the layer
-    composition: 'coat' (a coat over a dielectric base), 'no_coat',
-    'metal' (a metal base, coat on half the lanes), 'translucent' (a
-    translucent base, coat on half the lanes) or 'mixed' (random
-    weights); `limit` is every lane's layer bounce limit.
-
-    The coats are nearly clear (transmittance 0.9 to 0.99, as the default
-    white coat color): the coat's absorption is the transmittance to the
-    power of the in-coat path length, which reaches 1e4 at grazing
-    angles, where a dark coat turns a last-bit difference of that length
-    into 1e-3. The coat IOR (1.3 to 1.45) stays apart from the base's
-    (1.6 to 1.9): at an index match the base's refraction half vectors
-    nearly vanish, as in tests/test_torch_media.py::translucent_ctx. The
-    rough base lanes have roughness 0.2 to 0.8, the smooth ones are
-    Dirac: the secondary wavelengths' refraction densities are GGX values
-    of their half vectors, and a lobe of alpha 0.01 (roughness 0.1)
-    divides a last-bit difference of a half vector by alpha."""
-    def u(lo, hi, shape=n):
-        return rng.uniform(lo, hi, shape).astype(np.float32)
-
-    def full(v):
-        return np.full(n, v, np.float32)
-
-    weights = dict(
-        coat=(full(1.0), full(0.0), full(0.0)),
-        no_coat=(full(0.0), full(0.0), full(0.0)),
-        metal=(full(0.5), full(1.0), full(0.0)),
-        translucent=(full(0.5), full(0.0), full(1.0)),
-        mixed=(u(0, 1), u(0, 1), u(0, 1)),
-    )[case]
-    return dict(
-        type=np.full(n, MATERIAL_TYPE_OPENPBR, np.int32),
-        lam=u(380, 720, (4, n)),
-        exterior_ior=np.where(rng.uniform(0, 1, n) < 0.5, 1.0, 1.33)
-        .astype(np.float32) * np.ones((4, 1), np.float32),
-        base_reflectance=u(0.05, 0.95, (4, n)),
-        specular_reflectance=u(0.3, 1.0, (4, n)),
-        roughness=np.where(rng.uniform(0, 1, n) < 0.25, 5e-4,
-                           rng.uniform(0.2, 0.8, n)).astype(np.float32),
-        roughness_anisotropy=u(0, 0.8),
-        base_weight=u(0.5, 1.0),
-        base_metalness=weights[1],
-        base_diffuse_roughness=u(0, 1),
-        specular_weight=np.where(rng.uniform(0, 1, n) < 0.5, 1.0,
-                                 rng.uniform(0.2, 1.0, n)).astype(np.float32),
-        specular_ior=u(1.6, 1.9),
-        transmission_weight=weights[2],
-        transmission_spectrum=_beta(rng, n),
-        transmission_depth=np.where(rng.uniform(0, 1, n) < 0.25, 0.0,
-                                    rng.uniform(0.2, 2.0, n)).astype(np.float32),
-        transmission_scatter_spectrum=_beta(rng, n),
-        transmission_scatter_anisotropy=u(-0.9, 0.9),
-        transmission_dispersion_abbe=u(20, 60),
-        coat_weight=weights[0],
-        coat_spectrum=np.stack([u(-1e-6, 1e-6), u(-1e-3, 1e-3),
-                                u(2.5, 5.0)]),
-        coat_ior=u(1.3, 1.45),
-        coat_roughness=u(0.01, 0.5),
-        coat_roughness_anisotropy=u(0, 0.5),
-        emission_reflectance=u(0, 1, (4, n)),
-        emission_luminance=np.where(rng.uniform(0, 1, n) < 0.5, 0.0,
-                                    rng.uniform(0.5, 5, n)).astype(np.float32),
-        layer_bounce_limit=np.full(n, limit, np.int32),
-    )
 
 
 def _rngs(seed):
@@ -170,6 +104,44 @@ def test_openpbr_sample_bsdf(case, limit):
         _close(a, b)
     zeros = tpbr.evaluate_bsdf(tctx, torch.from_numpy(view), torch.from_numpy(view))
     assert not any(bool(x.any()) for x in zeros)
+
+
+@pytest.mark.parametrize('case', ['coat', 'metal', 'translucent'])
+def test_openpbr_sample_bsdf_on_cpu_is_the_plain_walk(case):
+    """On CPU tensors `sample_bsdf` is `sample_bsdf_plain` to the bit, with
+    the same stream after it, launches no kernel and counts every lane as
+    walked (its counters' meaning on the CPU)."""
+    rng = np.random.default_rng(44)
+    ctx = {k: torch.from_numpy(v)
+           for k, v in openpbr_ctx(rng, N, case, 8).items()}
+    view = torch.from_numpy(_unit(rng, N, 1))
+    u = [torch.from_numpy(rng.uniform(0, 1, N).astype(np.float32))
+         for _ in range(3)]
+    walked = tsampling.Rng.seed(torch.arange(N), 9)
+    plain = tsampling.Rng.seed(torch.arange(N), 9)
+    profiling.reset()
+    out = tpbr.sample_bsdf(ctx, view, *u, walked)
+    ref = tpbr.sample_bsdf_plain(ctx, view, *u, plain)
+    assert torch.equal(walked.state, plain.state)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    counted = profiling.counters()
+    assert counted.get('kernel.openpbr_walk', 0) == 0
+    assert counted['pt.model.openpbr.lanes'] == N
+    assert counted['pt.model.openpbr.walk_warps'] == N // 32
+    assert counted['pt.model.openpbr.warps'] == N // 32
+
+
+def test_openpbr_walk_kernel_wrapper_takes_only_cuda_tensors():
+    """The kernel's wrapper raises on CPU tensors: the plain walk is
+    `sample_bsdf`'s own route there, never a fallback of the wrapper."""
+    rng = np.random.default_rng(45)
+    ctx = {k: torch.from_numpy(v) for k, v in openpbr_ctx(rng, 64).items()}
+    view = torch.from_numpy(_unit(rng, 64, 1))
+    u = torch.zeros(64)
+    with pytest.raises(ValueError, match='CUDA'):
+        tpbr.openpbr_walk(ctx, view, u, u, u, torch.zeros(64, dtype=torch.int64))
+    assert 'kernel.openpbr_walk' not in profiling.counters()
 
 
 def mixed_ctx(rng, n):

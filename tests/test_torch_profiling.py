@@ -120,6 +120,24 @@ def test_on_spans_keep_parents_and_device_counts_add_without_sync(monkeypatch):
     assert profiling.records() == [] and profiling.counters() == {}
 
 
+def test_kernel_counts_are_device_counts_a_kernel_adds_into():
+    """`kernel_counts` is None while tracing is off; on, it hands out one
+    zeroed int64 tensor for the names, the same one until a reset, whose
+    elements `counters()` reads under those names."""
+    assert profiling.kernel_counts(('pt.k.a', 'pt.k.b'), 'cpu') is None
+    with profiling.tracing():
+        acc = profiling.kernel_counts(('pt.k.a', 'pt.k.b'), 'cpu')
+        assert acc.dtype == torch.int64 and acc.tolist() == [0, 0]
+        assert profiling.kernel_counts(('pt.k.a', 'pt.k.b'), 'cpu') is acc
+        acc += torch.tensor([5, 2])      # what the kernel does on the card
+        acc[0] += 1
+        assert profiling.counters() == {'pt.k.a': 6, 'pt.k.b': 2}
+    with profiling.tracing():
+        fresh = profiling.kernel_counts(('pt.k.a', 'pt.k.b'), 'cpu')
+        assert fresh is not acc and fresh.tolist() == [0, 0]
+    assert profiling.counters() == {'pt.k.a': 0, 'pt.k.b': 0}
+
+
 def test_log_timer_opens_a_span_on_the_span_clock(tmp_path):
     sink = tmp_path / 'events.jsonl'
     log.enable(str(sink))
