@@ -72,7 +72,12 @@ hand-written kernels against their plain PyTorch versions:
      of the Cornell box at 2880x2880 (the benchmark's configuration):
      times, the kernel's bound from its compulsory bytes, the lanes and
      warps that walked, its `ptxas` registers and spills, and its
-     agreement with the plain walk;
+     agreement with the plain walk; then `shape_trace`: the analytic-shape
+     kernel, which replaces the dense analytic path on the card, and that
+     path in turns on 262,144 bounce rays of the benchmark's
+     one_weekend_final scene (484 spheres) at 1200x675, bit for bit,
+     with the kernel's bound, `ptxas` registers and spills, and the dense
+     path once on a whole wave of camera rays;
  14. bench config 6 (`make_terrain_scene(side=900)`, 1.62M unique
      triangles) compiled once for 16:9: seconds, triangles, the bytes of
      every table;
@@ -646,6 +651,105 @@ def openpbr_walk_phase(dev, card, ptxas_records, seed=2 ** 31 + 13):
             and lanes_walked == walking and walking > 0):
         raise RuntimeError('the OpenPBR walk kernel disagrees with the plain '
                            'walk on the Cornell box')
+    return rec
+
+
+def shape_trace_phase(dev, card, ptxas_records, subset=262144,
+                      seed=2 ** 31 + 17):
+    """Phase `shape_trace`: the analytic-shape kernel (csrc/shape_trace.cu)
+    against the dense analytic path it replaces on the card, on the
+    benchmark's one_weekend_final scene (484 spheres) at the book's
+    1200x675 with one wave: `subset` of the bounce rays of its third
+    round, bit for bit in every field but complexity (a difference fails
+    the run), timed in turns and cold, with the kernel's bound (its
+    compulsory bytes over HBM bandwidth: 52 a ray, 48 a shape), its
+    nodes and tests a ray and `ptxas`'s registers and spills; then the
+    dense path once on all 810,000 camera rays, which is what the kernel
+    replaced (an out-of-memory error is recorded, not raised). Returns
+    the record."""
+    import numpy as np
+    import torch
+
+    from path_tracer_tpu_torch.core import constants
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.ops import intersect
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+    from test_torch_cuda import one_weekend_scene
+
+    width, height = 1200, 675
+    packed = compile_scene(one_weekend_scene(), aspect_ratio=width / height,
+                           device=dev)
+    layout = intersect.SceneLayout.from_packed(packed)
+    shapes = int(packed.shape_rows.shape[0] + packed.plane_rows.shape[0])
+    config = wavefront.RenderConfig(
+        width=width, height=height,
+        flags=(constants.RENDER_FLAG_ACCUMULATE
+               | constants.RENDER_FLAG_SAMPLE_JITTER),
+        camera_model=packed.host_camera_models[0])
+    state = wavefront.reset(packed, config, seed)
+    camera = (state['origin'].clone(), state['direction'].clone())
+    wavefront.render(packed, config, 2, state=state, layout=layout,
+                     termination_probability=0.05)
+    rng = np.random.default_rng(seed)
+    idx = torch.as_tensor(np.sort(rng.choice(width * height, subset,
+                                             replace=False)), device=dev)
+    o = state['origin'][:, idx].contiguous()
+    d = state['direction'][:, idx].contiguous()
+    del state
+    hit = intersect.make_hit(subset, constants.HIT_TIME_LIMIT, dev)
+
+    def kernel():
+        return intersect.intersect_analytic(packed, layout, o, d, hit)
+
+    def dense():
+        return intersect.intersect_analytic_dense(packed, layout, o, d, hit)
+
+    got, want = kernel(), dense()
+    fields = ('time', 'shape', 'shape_type', 'primitive', 'coords')
+    equal = {k: bool(torch.equal(got[k], want[k])) for k in fields}
+    hits = float((want['shape'] != constants.SHAPE_INDEX_NONE).float().mean())
+    visits = float(got['complexity'].float().mean())
+    del got, want
+    ms = time_in_turns({'kernel': kernel, 'dense': dense}, TIMING_REPS)
+    flush_buffer = torch.empty(96 * 2 ** 20, dtype=torch.float32, device=dev)
+    ms_cold = cuda_ms(kernel, flush=flush_buffer.zero_)
+    del flush_buffer
+    nbytes = subset * 52 + shapes * 48
+    bound_ms = 1e3 * nbytes / PEAK_BYTES_S
+    regs = [r for r in ptxas_records if r['source'] == 'shape_trace.cu']
+
+    # What the kernel replaced: the dense path on a whole wave of camera rays.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    full = intersect.make_hit(width * height, constants.HIT_TIME_LIMIT, dev)
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        intersect.intersect_analytic_dense(packed, layout, *camera, full)
+        end.record()
+        end.synchronize()
+        full_dense = dict(ms=start.elapsed_time(end),
+                          peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    except torch.cuda.OutOfMemoryError as e:
+        full_dense = dict(error=str(e).splitlines()[0])
+    del full, camera
+    torch.cuda.empty_cache()
+    rec = dict(
+        nvidia_smi=card, rays=subset, shapes=shapes, hit_share=hits,
+        visits_per_ray=visits, equal=equal, kernel_ms=ms['kernel'],
+        kernel_ms_cold=ms_cold, dense_ms=ms['dense'],
+        speedup=ms['dense'] / ms['kernel'], bound_ms=bound_ms,
+        bound_by='bytes', compulsory_bytes=nbytes,
+        roofline_pct=100.0 * bound_ms / ms['kernel'],
+        registers=[r['registers'] for r in regs],
+        spill_bytes=[r['spill_store_bytes'] + r['spill_load_bytes']
+                     for r in regs],
+        dense_full_wave=dict(rays=width * height, **full_dense))
+    log('shape_trace', **rec)
+    if not all(equal.values()) or hits < 0.2:
+        raise RuntimeError('the shape kernel disagrees with the dense path '
+                           'on the one_weekend_final scene')
     return rec
 
 
@@ -1968,6 +2072,11 @@ def main():
     torch.cuda.empty_cache()
     lap('openpbr_walk')
 
+    # -- 13c. the analytic-shape kernel on the one_weekend_final scene --------
+    records['shape_trace'] = shape_trace_phase(dev, card, ptxas_records)
+    torch.cuda.empty_cache()
+    lap('shape_trace')
+
     # -- 14-18. bench config 6 at 1920x1080 with 1 and 4 waves ----------------
     torch.cuda.empty_cache()
     terrain, terrain_layout, inst_bytes = terrain_compile(dev, WIDTH, HEIGHT)
@@ -2032,7 +2141,8 @@ def main():
         inst_trace=('trace_inst.cu', 'path_tracer_tpu/ops/trace_inst.py:149'),
         wide_trace5=('trace_packet.cu', 'path_tracer_tpu/ops/trace_packet.py:85'),
         wide_trace=('trace_wide.cu', 'path_tracer_tpu/ops/trace_wide.py:97'),
-        openpbr_walk=('openpbr_walk.cu', None))
+        openpbr_walk=('openpbr_walk.cu', None),
+        shape_trace=('shape_trace.cu', None))
     print(json.dumps({'kernels': [dict(
         name=name, route='cuda',
         source='path_tracer_tpu_torch/csrc/' + sources[name][0],

@@ -46,6 +46,13 @@ extern "C" int wide_trace_simple_launch(
     const float* direction, const float* t_in, long long n, float* t_out,
     int* face_out, float* normal_out, float* uv_out, int* shape_out,
     int* stats, int* warp_stats, void* stream);
+extern "C" int shape_trace_launch(
+    const float* nodes, const float* rows, const float* planes, int n_planes,
+    const float* origin, const float* direction, const float* t_in,
+    const int* shape_in, const int* type_in, const int* prim_in,
+    const float* coords_in, const int* complexity_in, long long n,
+    float* t_out, int* shape_out, int* type_out, int* prim_out,
+    float* coords_out, int* complexity_out, long long* stats, void* stream);
 
 namespace {
 
@@ -163,6 +170,35 @@ int wide_trace_simple(const torch::Tensor& nodes, const torch::Tensor& tris,
       reinterpret_cast<void*>(stream));
 }
 
+// Queues csrc/shape_trace.cu: the hit record's fields in (t_in, shape,
+// shape type, primitive, coords (3, N), complexity) and out, `stats` empty
+// or the kernel's two int64 counters. Returns the cudaError_t of the
+// launch.
+int shape_trace(const torch::Tensor& nodes, const torch::Tensor& rows,
+                const torch::Tensor& planes, const torch::Tensor& origin,
+                const torch::Tensor& direction, const torch::Tensor& t_in,
+                const torch::Tensor& shape_in, const torch::Tensor& type_in,
+                const torch::Tensor& prim_in, const torch::Tensor& coords_in,
+                const torch::Tensor& complexity_in, torch::Tensor& t_out,
+                torch::Tensor& shape_out, torch::Tensor& type_out,
+                torch::Tensor& prim_out, torch::Tensor& coords_out,
+                torch::Tensor& complexity_out, torch::Tensor& stats,
+                int64_t stream) {
+  return shape_trace_launch(
+      nodes.data_ptr<float>(), rows.data_ptr<float>(),
+      planes.data_ptr<float>(), static_cast<int>(planes.size(0)),
+      origin.data_ptr<float>(), direction.data_ptr<float>(),
+      t_in.data_ptr<float>(), shape_in.data_ptr<int>(),
+      type_in.data_ptr<int>(), prim_in.data_ptr<int>(),
+      coords_in.data_ptr<float>(), complexity_in.data_ptr<int>(),
+      t_in.numel(), t_out.data_ptr<float>(), shape_out.data_ptr<int>(),
+      type_out.data_ptr<int>(), prim_out.data_ptr<int>(),
+      coords_out.data_ptr<float>(), complexity_out.data_ptr<int>(),
+      stats.numel() ? reinterpret_cast<long long*>(stats.data_ptr<int64_t>())
+                    : nullptr,
+      reinterpret_cast<void*>(stream));
+}
+
 // Queues csrc/openpbr_walk.cu: `in` and `out` hold the tensors of
 // models/openpbr.py's KERNEL_INPUTS and KERNEL_OUTPUTS in their order (the
 // fields of OpenpbrWalkArgs), `where` is empty or the (N,) bool mask of the
@@ -228,6 +264,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("wide_trace_simple", &wide_trace_simple,
         "The baseline flat traversal with attributes "
         "(csrc/trace_wide_simple.cu)");
+  m.def("shape_trace", &shape_trace,
+        "Closest analytic-shape hit over a shape BVH (csrc/shape_trace.cu)");
   m.def("openpbr_walk", &openpbr_walk,
         "The OpenPBR BSDF sample, one thread a lane (csrc/openpbr_walk.cu)");
 }

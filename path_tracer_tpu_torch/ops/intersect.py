@@ -3,7 +3,9 @@ hit attribute resolution.
 
 Port of path_tracer_tpu/ops/intersect.py (behavioral reference:
 reference src/scene/scene.glsl.inc:304-611). Analytic shapes are
-intersected as dense (S, N) batches per shape type. Mesh instances go
+intersected as dense (S, N) batches per shape type on the CPU, and on
+the card by the shape BVH kernel of ops/trace_shapes.py, whose plain
+twin is `traverse_shape_bvh`. Mesh instances go
 through one kernel call for all instances: the two-level BVH8 traversal
 of ops/trace_inst.py in 'inst' packet mode (the mode compile.py picks
 for every scene with a mesh) or the world-flattened BVH8 traversal of
@@ -46,10 +48,19 @@ from ..core.vec import (
     transform_vector,
     vec3,
 )
+from ..scene import bvh8
+from ..scene.compile import (
+    SHAPE_LANE_INDEX,
+    SHAPE_LANE_RANK,
+    SHAPE_LANE_TYPE,
+    SHAPE_STACK_DEPTH,
+)
 from ..utils import profiling
-from . import trace_inst, trace_packet
+from . import trace_inst, trace_packet, trace_shapes
 
 MAX_LEAF_FACES = 4   # faces per BVH2 leaf (scene/bvh.py)
+SHAPE_BASE = trace_inst.INST_BASE   # shape BVH leaf metas: base + shape row
+CULL_SLACK = trace_inst.CULL_SLACK
 STACK_DEPTH = 48     # per-ray stack of the portable BVH2 traversal
 
 
@@ -254,7 +265,12 @@ def _intersect_sphere(o, d, reach):
     q = o[0] * o[0] + o[1] * o[1] + o[2] * o[2] - 1.0
     d2 = p * p - q * v
     ok = d2 >= 0.0
-    sq = torch.sqrt(torch.clamp(d2, min=0.0))
+    # The correctly rounded float32 root, as sqrtf gives it on the card.
+    # torch's float32 sqrt on the CPU misses the last bit on ~0.6% of
+    # values, and on which ones depends on how a call splits its work
+    # over threads: a ray could get another root from one call to the
+    # next. The float64 root rounded to float32 is the exact one.
+    sq = torch.sqrt(torch.clamp(d2, min=0.0).double()).float()
     ok &= sq >= p
     s0 = -p - sq
     s1 = -p + sq
@@ -285,9 +301,46 @@ _INTERSECTORS = {
 }
 
 
+# Counters of the analytic intersection (utils/profiling.py), kept while
+# tracing is on: BVH nodes and shapes tested, summed over rays. On the
+# card csrc/shape_trace.cu adds them itself; the dense path on the CPU
+# tests every slot a ray and visits no node.
+ANALYTIC_NODES = 'pt.trace.analytic.nodes'
+ANALYTIC_TESTS = 'pt.trace.analytic.tests'
+
+
 def intersect_analytic(packed, layout: SceneLayout, origin, direction, hit):
-    """Intersect all analytic shapes as type-grouped (S, N) batches; the
-    lowest slot of the first group wins ties, as in the JAX package."""
+    """Intersect all analytic shapes; the lowest slot of the first group
+    wins ties, as in the JAX package.
+
+    On a CUDA device, a layout with sphere or cube groups goes through
+    csrc/shape_trace.cu (ops/trace_shapes.py): the planes one by one,
+    then a BVH over the shapes' boxes, with this function's results to
+    the bit except `complexity`, which counts the nodes and shapes the
+    walk visited. Otherwise the shapes are tested as type-grouped dense
+    (S, N) batches, every ray against every slot."""
+    if not layout.analytic_buckets:
+        return hit
+    if origin.device.type == 'cuda' and any(
+            t in (SHAPE_TYPE_SPHERE, SHAPE_TYPE_CUBE)
+            for t, _ in layout.analytic_buckets):
+        return trace_shapes.shape_trace(
+            packed.plane_rows, packed.shape_rows, packed.shape_nodes,
+            origin, direction, hit,
+            stats=profiling.kernel_counts((ANALYTIC_NODES, ANALYTIC_TESTS),
+                                          origin.device))
+    if profiling.enabled():
+        profiling.count(ANALYTIC_NODES, 0)
+        profiling.count(ANALYTIC_TESTS, origin.shape[1] * sum(
+            k for _, k in layout.analytic_buckets))
+    return intersect_analytic_dense(packed, layout, origin, direction, hit)
+
+
+def intersect_analytic_dense(packed, layout: SceneLayout, origin, direction,
+                             hit):
+    """The dense path of `intersect_analytic` on any device: each shape
+    type's slots as one (S, N) batch, then the lowest slot of the first
+    group among the rays' nearest."""
     if not layout.analytic_buckets:
         return hit
     reach = hit['time'][None, :]
@@ -326,6 +379,137 @@ def intersect_analytic(packed, layout: SceneLayout, origin, direction, hit):
         # Every ray tests every (padded) slot of every group.
         complexity=hit['complexity'] + sum(k for _, k in layout.analytic_buckets),
     )
+
+
+def _shape_row_tests(rows, origin, direction, reach):
+    """Shape rows (G, 16) of scene/compile.py's pack_shape_tables against
+    G world rays (3, G): (t, object-space o, d), with the dense path's
+    per-type tests in its order of operations."""
+    m = rows[:, :12].T.reshape(3, 4, -1)
+    o = torch.stack([m[i, 0] * origin[0] + m[i, 1] * origin[1]
+                     + m[i, 2] * origin[2] + m[i, 3] for i in range(3)], 0)
+    d = torch.stack([m[i, 0] * direction[0] + m[i, 1] * direction[1]
+                     + m[i, 2] * direction[2] for i in range(3)], 0)
+    stype = rows[:, SHAPE_LANE_TYPE].round().to(torch.int32)
+    t = torch.where(stype == SHAPE_TYPE_PLANE, _intersect_plane(o, d, reach),
+                    torch.where(stype == SHAPE_TYPE_SPHERE,
+                                _intersect_sphere(o, d, reach),
+                                _intersect_cube(o, d, reach)))
+    return t, o, d
+
+
+def traverse_shape_bvh(packed, origin, direction, hit, stats=False):
+    """The walk of csrc/shape_trace.cu in plain PyTorch, over all rays.
+
+    Each ray tests the plane rows in order, then walks the BVH of
+    `packed.shape_nodes` from its root row: one pop a ray an iteration,
+    a pop dropped when the ray enters its box beyond min(best t, t_in) x
+    CULL_SLACK; a node row pushes the children the ray enters at or
+    before that distance (slab test (b - o) * inv), far first in its
+    octant's order, and a leaf tests its shape row. The winner is the
+    lexicographic minimum of (t, tie rank), kept where its t is below
+    hit['time']. Returns the hit record as `intersect_analytic` does,
+    with `complexity` grown by the nodes and shapes each ray visited;
+    with `stats`, also the (2, N) per-ray node and test counts.
+    """
+    dev = origin.device
+    n = origin.shape[1]
+    planes, rows, nodes = packed.plane_rows, packed.shape_rows, packed.shape_nodes
+    table = torch.cat([planes, rows], 0)
+    n_planes = planes.shape[0]
+    reach = hit['time']
+    best = torch.full((n,), INFINITY, dtype=torch.float32, device=dev)
+    best_rank = torch.full((n,), 2 ** 31 - 1, dtype=torch.int64, device=dev)
+    best_row = torch.zeros(n, dtype=torch.int64, device=dev)
+    counts = torch.zeros((2, n), dtype=torch.int64, device=dev)
+
+    def consider(idx, row_ids):
+        r = table[row_ids]
+        t, _, _ = _shape_row_tests(r, origin[:, idx], direction[:, idx],
+                                   reach[idx])
+        rank = r[:, SHAPE_LANE_RANK].round().to(torch.int64)
+        bt, br = best[idx], best_rank[idx]
+        take = (t < bt) | ((t == bt) & (rank < br))
+        best[idx] = torch.where(take, t, bt)
+        best_rank[idx] = torch.where(take, rank, br)
+        best_row[idx] = torch.where(take, row_ids, best_row[idx])
+        counts[1, idx] += 1
+
+    every = torch.arange(n, device=dev)
+    for k in range(n_planes):
+        consider(every, torch.full((n,), k, dtype=torch.int64, device=dev))
+
+    inv = trace_inst.safe_inv(direction)
+    neg = (direction < 0).to(torch.int64)
+    octant = (neg[0] << 2) | (neg[1] << 1) | neg[2]
+    stack = torch.zeros((n, SHAPE_STACK_DEPTH), dtype=torch.int64, device=dev)
+    entered = torch.zeros((n, SHAPE_STACK_DEPTH), dtype=torch.float32, device=dev)
+    sp = torch.ones(n, dtype=torch.int64, device=dev)
+
+    def push(idx, value, entry, ok):
+        ok = ok & (sp[idx] < SHAPE_STACK_DEPTH)
+        at = idx[ok]
+        stack[at, sp[at]] = value[ok]
+        entered[at, sp[at]] = entry[ok]
+        sp[at] += 1
+
+    while True:
+        act = torch.nonzero(sp > 0).squeeze(1)
+        if act.numel() == 0:
+            break
+        sp[act] -= 1
+        v = stack[act, sp[act]]
+        e = entered[act, sp[act]]
+        bt, rt = best[act], reach[act]
+        limit = torch.where(bt < rt, bt, rt) * CULL_SLACK
+        keep = e <= limit
+        act, v, limit = act[keep], v[keep], limit[keep]
+
+        leaf = v >= SHAPE_BASE
+        if bool(leaf.any()):
+            consider(act[leaf], n_planes + v[leaf] - SHAPE_BASE)
+        inner = ~leaf
+        if bool(inner.any()):
+            idx, lim = act[inner], limit[inner]
+            counts[0, idx] += 1
+            row = nodes[v[inner]]
+            o = origin[:, idx].T[:, :, None]
+            iv = inv[:, idx].T[:, :, None]
+            t0 = (row[:, 0:24].reshape(-1, 3, 8) - o) * iv
+            t1 = (row[:, 24:48].reshape(-1, 3, 8) - o) * iv
+            t_lo, t_hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            entry = torch.maximum(torch.maximum(t_lo[:, 0], t_lo[:, 1]), t_lo[:, 2])
+            exit_ = torch.minimum(torch.minimum(t_hi[:, 0], t_hi[:, 1]), t_hi[:, 2])
+            metas = row[:, bvh8.META_LANE:bvh8.META_LANE + 8].round().to(torch.int64)
+            enters = ((exit_ >= entry) & (exit_ >= 0.0) & (entry <= lim[:, None])
+                      & (metas != 0))
+            order = row.gather(1, (bvh8.PERM_LANE + octant[idx])[:, None])[:, 0]
+            order = order.round().to(torch.int64)
+            for k in range(8):
+                ch = ((order >> (3 * k)) & 7)[:, None]
+                push(idx, metas.gather(1, ch)[:, 0], entry.gather(1, ch)[:, 0],
+                     enters.gather(1, ch)[:, 0])
+
+    improved = best < reach
+    complexity = hit['complexity'] + counts.sum(0).to(hit['complexity'].dtype)
+    if table.shape[0] == 0:
+        out = dict(hit, complexity=complexity)
+    else:
+        row = table[best_row]
+        _, o, d = _shape_row_tests(row, origin, direction, reach)
+        out = dict(
+            time=torch.where(improved, best, reach),
+            shape=torch.where(improved, row[:, SHAPE_LANE_INDEX].round().to(torch.int32),
+                              hit['shape']),
+            shape_type=torch.where(
+                improved, row[:, SHAPE_LANE_TYPE].round().to(torch.int32),
+                hit['shape_type']),
+            primitive=torch.where(improved, torch.zeros_like(hit['primitive']),
+                                  hit['primitive']),
+            coords=torch.where(improved, o + d * best, hit['coords']),
+            complexity=complexity,
+        )
+    return (out, counts) if stats else out
 
 
 # --- Portable mesh BVH2 traversal -------------------------------------------
@@ -612,7 +796,8 @@ def trace(packed, layout: SceneLayout, origin, direction,
     with profiling.span('pt.trace'):
         n = origin.shape[1]
         hit = make_hit(n, duration, origin.device)
-        hit = intersect_analytic(packed, layout, origin, direction, hit)
+        with profiling.span('pt.trace.analytic'):
+            hit = intersect_analytic(packed, layout, origin, direction, hit)
 
         if layout.instance_slots and use_packet in (None, True):
             k_origin, k_direction, k_tin = origin, direction, hit['time']

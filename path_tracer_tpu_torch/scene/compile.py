@@ -185,6 +185,10 @@ class PackedScene:
     inst_face_map: Any            # (R*8,) int32
     inst_rows: Any                # (I, 128) float32 inv 3x4 + mesh root
     inst_aux: Any                 # (I, 16) float32 inv 3x3 + shape index
+    # The analytic shapes' tables of ops/trace_shapes.py (pack_shape_tables).
+    plane_rows: Any               # (P, 16) float32 valid plane slots
+    shape_rows: Any               # (B, 16) float32 valid sphere, cube slots
+    shape_nodes: Any              # (W, 128) float32 BVH8 over their boxes
     materials: MaterialTable
     camera_model: Any             # (C,) int32
     camera_focal_length: Any      # (C,)
@@ -530,6 +534,106 @@ def _pack_tlas_rows(bounds_min, bounds_max, width=None):
     return rows
 
 
+# Analytic shape tables of ops/trace_shapes.py. A shape row (16 float32
+# lanes) holds the object_from_world 3x4 row-major in lanes 0..11, then
+# the shape type, the shape index and the tie rank: the slot's position
+# in the analytic groups taken in order (intersect_analytic's tie rule).
+SHAPE_ROW = 16
+SHAPE_LANE_TYPE, SHAPE_LANE_INDEX, SHAPE_LANE_RANK = 12, 13, 14
+# A stack of STACK_DEPTH entries (csrc/shape_trace.cu) holds any walk of
+# a tree whose node rows are at most this deep: 7 entries a level, plus
+# the root.
+SHAPE_STACK_DEPTH = 128
+# Outward pad of a shape's world box: the box must hold every hit the
+# dense test finds, and a grazing ray's hit, rounded in object space, can
+# lie outside the exact surface (by ~1e-4 radius for an origin 65 radii
+# away). A 2^-8 fraction of the half-extent holds origins up to ~180
+# radii away; the 2^-20 fraction of the coordinates covers their ulps.
+SHAPE_BOX_PAD = 2.0 ** -8
+SHAPE_BOX_ULPS = 2.0 ** -20
+
+
+def _shape_world_box(shape_type, object_from_world):
+    """World box of a sphere or cube slot, padded outward, from the
+    inverse of the object_from_world that the intersection tests use."""
+    world = np.linalg.inv(np.asarray(object_from_world, np.float64))
+    lin, centre = world[:3, :3], world[:3, 3]
+    if shape_type == SHAPE_TYPE_SPHERE:
+        half = np.linalg.norm(lin, axis=1)
+        lo, hi = centre - half, centre + half
+    else:
+        corners = np.array([[x, y, z] for x in (-1.0, 1.0) for y in (-1.0, 1.0)
+                            for z in (-1.0, 1.0)]) @ lin.T + centre
+        lo, hi = corners.min(axis=0), corners.max(axis=0)
+    pad = (SHAPE_BOX_PAD * 0.5 * (hi - lo)
+           + SHAPE_BOX_ULPS * np.maximum(np.abs(lo), np.abs(hi)))
+    lo32 = np.nextafter((lo - pad).astype(np.float32), np.float32(-np.inf))
+    hi32 = np.nextafter((hi + pad).astype(np.float32), np.float32(np.inf))
+    return lo32, hi32
+
+
+def _row_depth(rows, width):
+    """Node rows on the longest path from the root row to a leaf."""
+    from ..ops.trace_inst import INST_BASE
+
+    meta_lane = bvh8.NODE_LAYOUT[width]['meta']
+    metas = np.rint(rows[:, meta_lane:meta_lane + width]).astype(np.int64)
+    depth, level = 0, [0]
+    while level:
+        depth += 1
+        level = [int(m) for r in level for m in metas[r] if 0 < m < INST_BASE]
+    return depth
+
+
+def pack_shape_tables(object_from_world, analytic_idx, analytic_valid):
+    """The tables of ops/trace_shapes.py from the shape tables and the
+    analytic groups: `plane_rows` (P, 16), the valid plane slots, tested
+    one after the other (a plane is unbounded); `shape_rows` (B, 16), the
+    valid sphere and cube slots; `shape_nodes` (W, 128), wide BVH rows
+    over the padded world boxes of `shape_rows`, built as the instance
+    TLAS is (_pack_tlas_rows: binary SAH, then the BVH8 collapse), whose
+    leaf metas are INST_BASE + the shape row. Padded (invalid) slots are
+    in no table. Rows come in tie-rank order."""
+    plane_rows, shape_rows, lo, hi = [], [], [], []
+    rank = 0
+    for stype in sorted(int(t) for t in analytic_idx):
+        idx = np.asarray(analytic_idx[stype])
+        valid = np.asarray(analytic_valid[stype]) > 0.0
+        for slot, si in enumerate(idx):
+            if not valid[slot]:
+                continue
+            si = int(si)
+            m = np.asarray(object_from_world[:, :, si], np.float32)
+            row = np.zeros(SHAPE_ROW, np.float32)
+            row[0:12] = m[:3, :4].reshape(12)
+            row[SHAPE_LANE_TYPE] = stype
+            row[SHAPE_LANE_INDEX] = si
+            row[SHAPE_LANE_RANK] = rank + slot
+            if stype == SHAPE_TYPE_PLANE:
+                plane_rows.append(row)
+            else:
+                shape_rows.append(row)
+                box = _shape_world_box(stype, m)
+                lo.append(box[0])
+                hi.append(box[1])
+        rank += len(idx)
+    width = bvh8.WIDE_WIDTH
+    if shape_rows:
+        nodes = _pack_tlas_rows(lo, hi, width=width)
+        depth = _row_depth(nodes, width)
+        if 7 * depth + 1 > SHAPE_STACK_DEPTH:
+            raise ValueError(f'shape BVH of {depth} levels: a walk could '
+                             f'overflow the {SHAPE_STACK_DEPTH}-entry stack')
+    else:
+        nodes = np.zeros((1, 128), np.float32)
+        nodes[:, 0:3 * width] = bvh8.BIG
+        nodes[:, 3 * width:6 * width] = -bvh8.BIG
+    return dict(
+        plane_rows=np.asarray(plane_rows, np.float32).reshape(-1, SHAPE_ROW),
+        shape_rows=np.asarray(shape_rows, np.float32).reshape(-1, SHAPE_ROW),
+        shape_nodes=nodes)
+
+
 def _build_inst_tables(instances, inst_bounds, width=None, leaf_max=None):
     """Two-level tables: per-unique-mesh object-space wide BVHs, rebased
     and concatenated behind the TLAS, plus per-instance rows. Returns
@@ -782,6 +886,7 @@ def _pack_shapes(scene, out):
         a_valid[t] = val
     out['analytic_idx'] = a_idx
     out['analytic_valid'] = a_valid
+    out.update(pack_shape_tables(out['shape_object_from_world'], a_idx, a_valid))
 
     i_real = len(instances)
     i_slots = 0 if i_real == 0 else 1 if i_real == 1 else _bucket(i_real)
@@ -953,10 +1058,16 @@ def packed_from_numpy(fields, layout_fields=None, device='cuda'):
     MaterialTable columns, 'analytic_idx'/'analytic_valid' are dicts
     keyed by shape type. Extra keys are ignored, and the fields are
     those of the JAX PackedScene, so the JAX package's compile can be
-    carried across leaf by leaf. layout_fields: optional {SceneLayout
+    carried across leaf by leaf; the analytic shapes' tables, which the
+    JAX PackedScene lacks, are built here from its shape transforms and
+    groups when `fields` has none. layout_fields: optional {SceneLayout
     field: value}; when given, the SceneLayout is attached as
     `host_layout` (unknown keys are ignored).
     """
+    if 'shape_nodes' not in fields:
+        fields = dict(fields, **pack_shape_tables(
+            np.asarray(fields['shape_object_from_world']),
+            fields['analytic_idx'], fields['analytic_valid']))
     packed = PackedScene(**{f.name: _field_tensor(f.name, fields[f.name], device)
                             for f in dataclasses.fields(PackedScene)})
     if layout_fields is not None:

@@ -20,7 +20,8 @@ from test_torch_cuda import blob_scene, textured_scene
 
 
 def jax_fields(packed):
-    """The JAX PackedScene's leaves as numpy (bf16 atlas as float32)."""
+    """The JAX PackedScene's leaves as numpy (bf16 atlas as float32), and
+    the port's analytic shape tables built from them."""
     out = {}
     for f in dataclasses.fields(packed):
         v = getattr(packed, f.name)
@@ -32,6 +33,11 @@ def jax_fields(packed):
         else:
             out[f.name] = np.asarray(v)
     out['atlas_pair'] = out['atlas_pair'].astype(np.float32)
+    # The analytic shapes' tables of ops/trace_shapes.py, which the JAX
+    # PackedScene lacks, built from its shape transforms and groups.
+    out.update(tcompile.pack_shape_tables(
+        out['shape_object_from_world'], out['analytic_idx'],
+        out['analytic_valid']))
     return out
 
 
@@ -74,7 +80,9 @@ SCENES = {
 @pytest.mark.parametrize('name', sorted(SCENES))
 def test_compile_matches_jax(name):
     """Every PackedScene field of the port equals the JAX compile's
-    exactly (the port leaves out only the v5/v3 `wide_*` tables), and so
+    exactly (the port leaves out only the v5/v3 `wide_*` tables; its
+    analytic shape tables equal those built from the JAX compile's shape
+    transforms and groups), and so
     does every SceneLayout field the port keeps."""
     jp = jcompile.compile_scene(SCENES[name](jmodel, jproc), aspect_ratio=2.0)
     tp = tcompile.compile_scene(SCENES[name](tmodel, tproc), aspect_ratio=2.0,

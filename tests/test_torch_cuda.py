@@ -26,7 +26,7 @@ import torch
 
 from path_tracer_tpu_torch.core.constants import (
     MATERIAL_TYPE_BASIC_DIFFUSE, MATERIAL_TYPE_BASIC_METAL,
-    MATERIAL_TYPE_BASIC_TRANSLUCENT, MATERIAL_TYPE_OPENPBR,
+    MATERIAL_TYPE_BASIC_TRANSLUCENT, MATERIAL_TYPE_OPENPBR, SHAPE_INDEX_NONE,
     TEXTURE_TYPE_RADIANCE, TEXTURE_TYPE_REFLECTANCE_WITH_ALPHA)
 from path_tracer_tpu_torch.utils import profiling
 
@@ -1161,3 +1161,112 @@ def test_sharded_render_world_of_one_on_card(cuda):
             assert torch.equal(merged['count'], single['accum']['count'][order])
     finally:
         dist.destroy_process_group()
+
+
+def one_weekend_scene():
+    """The benchmark's one_weekend_final scene (484 spheres, thin lens,
+    sky), built by the port from its configuration file."""
+    import types
+
+    from benchmark.harness.cell import load_cell
+    from path_tracer_tpu_torch.core import constants
+    from path_tracer_tpu_torch.scene import model
+
+    cell = load_cell('one_weekend_final.offline_1200x675_w8')
+    api = types.SimpleNamespace(**{k: v for m in (constants, model)
+                                   for k, v in vars(m).items()
+                                   if not k.startswith('_')})
+    return cell.maker.make_scene(api, cell.config)
+
+
+def _shape_rays(case, packed, cuda, n=65536):
+    """(camera or random rays, bounce rays) of a shape-trace case, n each."""
+    from path_tracer_tpu_torch.core.constants import (
+        RENDER_FLAG_ACCUMULATE, RENDER_FLAG_SAMPLE_JITTER)
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.ops.intersect import SceneLayout
+
+    rng = np.random.default_rng(17)
+    if case != 'one_weekend':
+        o = rng.uniform(-7, 7, (3, n)).astype(np.float32)
+        d = rng.normal(size=(3, n)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=0)
+        first = (torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda))
+        hit = wavefront.trace(packed, SceneLayout.from_packed(packed), *first)
+        hits = hit['shape'] != SHAPE_INDEX_NONE
+        d = rng.normal(size=(3, n)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=0)
+        return first, (torch.where(hits, hit['position'], first[0]),
+                       torch.from_numpy(d).to(cuda))
+    config = wavefront.RenderConfig(
+        width=1200, height=675, waves=1,
+        flags=RENDER_FLAG_ACCUMULATE | RENDER_FLAG_SAMPLE_JITTER,
+        camera_model=packed.host_camera_models[0])
+    state = wavefront.reset(packed, config, 2 ** 31 + 5)
+    idx = torch.as_tensor(np.sort(rng.choice(1200 * 675, n, replace=False)),
+                          device=cuda)
+    first = (state['origin'][:, idx].contiguous(),
+             state['direction'][:, idx].contiguous())
+    wavefront.render(packed, config, 2, state=state,
+                     layout=SceneLayout.from_packed(packed),
+                     termination_probability=0.05)
+    return first, (state['origin'][:, idx].contiguous(),
+                   state['direction'][:, idx].contiguous())
+
+
+@pytest.mark.parametrize('case', ['seeded', 'seeded_generic', 'one_weekend'])
+def test_shape_trace_kernel_matches_dense_path(cuda, case):
+    """csrc/shape_trace.cu through intersect_analytic on the card against
+    the dense path on the card, bit for bit in every field but
+    complexity, on 65,536 camera (or random) rays and 65,536 bounce rays;
+    its complexity equals traverse_shape_bvh's nodes and tests."""
+    import path_tracer_tpu_torch.scene.compile as tcompile
+    from path_tracer_tpu_torch.core.constants import HIT_TIME_LIMIT
+    from path_tracer_tpu_torch.ops import intersect
+    from test_torch_trace_shapes import shapes_scene
+
+    scene = (one_weekend_scene() if case == 'one_weekend'
+             else shapes_scene(11, n=200, generic=case == 'seeded_generic'))
+    packed = tcompile.compile_scene(scene, aspect_ratio=1200 / 675,
+                                    device=cuda)
+    layout = intersect.SceneLayout.from_packed(packed)
+    for o, d in _shape_rays(case, packed, cuda):
+        hit = intersect.make_hit(o.shape[1], HIT_TIME_LIMIT, cuda)
+        profiling.reset()
+        got = intersect.intersect_analytic(packed, layout, o, d, hit)
+        assert launches('shape_trace') == 1
+        want = intersect.intersect_analytic_dense(packed, layout, o, d, hit)
+        walk = intersect.traverse_shape_bvh(packed, o, d, hit)
+        for key in ('time', 'shape', 'shape_type', 'primitive', 'coords'):
+            assert torch.equal(got[key], want[key]), (
+                key, int((got[key] != want[key]).sum()))
+            assert torch.equal(walk[key], want[key]), key
+        assert torch.equal(got['complexity'], walk['complexity'])
+        assert float((got['shape'] != SHAPE_INDEX_NONE).float().mean()) > 0.2
+
+
+def test_shape_trace_on_the_main_path(cuda):
+    """A render of the one_weekend scene launches the kernel once a
+    round through `trace` with no option set, and while tracing is on
+    the kernel's own counters equal the plain walk's nodes and tests."""
+    import path_tracer_tpu_torch as tpkg
+    import path_tracer_tpu_torch.scene.compile as tcompile
+    from path_tracer_tpu_torch.ops import intersect
+
+    scene = one_weekend_scene()
+    profiling.reset()
+    img = tpkg.render_scene(scene, 96, 54, spp_rounds=5, device=cuda)
+    assert launches('shape_trace') == 5
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
+    packed = tcompile.compile_scene(scene, aspect_ratio=96 / 54, device=cuda)
+    layout = intersect.SceneLayout.from_packed(packed)
+    (o, d), _ = _shape_rays('one_weekend', packed, cuda, n=4096)
+    hit = intersect.make_hit(o.shape[1], 1048576.0, cuda)
+    _, counts = intersect.traverse_shape_bvh(packed, o, d, hit, stats=True)
+    with profiling.tracing():
+        intersect.trace(packed, layout, o, d)
+        names = [r[0] for r in profiling.records()]
+        got = profiling.counters()
+    assert 'pt.trace.analytic' in names and got['kernel.shape_trace'] == 1
+    assert got[intersect.ANALYTIC_NODES] == int(counts[0].sum())
+    assert got[intersect.ANALYTIC_TESTS] == int(counts[1].sum())

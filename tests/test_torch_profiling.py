@@ -176,7 +176,8 @@ def test_render_round_span_tree_and_counts(openpbr_round):
     assert tree[None] == {'pt.round'}
     assert tree['pt.round'] == {'pt.trace', 'pt.scatter', 'pt.accumulate',
                                 'pt.respawn'}
-    assert tree['pt.trace'] == {'pt.trace.kernel', 'pt.trace.attributes'}
+    assert tree['pt.trace'] == {'pt.trace.analytic', 'pt.trace.kernel',
+                                'pt.trace.attributes'}
     assert layout.scene_has_medium
     assert {'pt.scatter.medium', 'pt.scatter.material',
             'pt.scatter.bsdf_sample'} <= tree['pt.scatter']
