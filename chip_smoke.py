@@ -56,7 +56,8 @@ hand-written kernels against their plain PyTorch versions:
  11. `media_render`: bench config 5 (`make_multi_mesh_scene(detail=1)`: the
      viking hall, a glass mesh ball whose medium scatters, a metal cube) at
      3840x2160 in 'inst' mode, 2 warm-up and 6 timed rounds: Mrays/s,
-     round ms, launches (inst_trace once a round, no other kernel), peak
+     round ms, launches (inst_trace and hit_attributes once a round, no
+     other kernel), peak
      memory, the share of lanes inside the ball (non-empty active-shape
      list) after the timed rounds, which must be above 0, and a profile of
      2 more rounds;
@@ -77,7 +78,14 @@ hand-written kernels against their plain PyTorch versions:
      path in turns on 262,144 bounce rays of the benchmark's
      one_weekend_final scene (484 spheres) at 1200x675, bit for bit,
      with the kernel's bound, `ptxas` registers and spills, and the dense
-     path once on a whole wave of camera rays;
+     path once on a whole wave of camera rays; then `hit_attributes`: the
+     hit-attribute kernel, which replaces the plain attribute chain of
+     `trace` on the card, and that chain in turns on the third-round
+     lanes of the Cornell box at 2880x2880 (8,294,400, mesh hits) and of
+     one_weekend_final at 1200x675 with 8 waves (6,480,000, sphere hits),
+     bit for bit in every field, with the bounds of the record scatter
+     reads and of all the layer moves, and its `ptxas` registers and
+     spills;
  14. bench config 6 (`make_terrain_scene(side=900)`, 1.62M unique
      triangles) compiled once for 16:9: seconds, triangles, the bytes of
      every table;
@@ -384,6 +392,15 @@ def check_golden(name, img, repo):
     return rel, rel_lim, bias, bias_lim
 
 
+def launched_once_a_trace(counted, traces, kernel='inst_trace'):
+    """Whether `counted` (kernel name -> launches) holds `traces` launches
+    of the traversal `kernel` (None: a scene without mesh, which launches
+    none) and of hit_attributes, which every trace on the card launches
+    once, and no launch of any other kernel."""
+    return all(count == (traces if name in (kernel, 'hit_attributes') else 0)
+               for name, count in counted.items())
+
+
 def media_render(dev, card, launches, reset_launches, width, height,
                  warmup=2, timed=6, profile_rounds=2):
     """Phase 11: bench config 5 through the main entry points at
@@ -416,10 +433,9 @@ def media_render(dev, card, launches, reset_launches, width, height,
     elapsed = time.perf_counter() - t0
     counted = launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    for name, count in counted.items():
-        if count != (warmup + timed if name == 'inst_trace' else 0):
-            raise RuntimeError(f'config 5 launched {name} {count} times in '
-                               f'{warmup + timed} rounds')
+    if not launched_once_a_trace(counted, warmup + timed):
+        raise RuntimeError(f'config 5 launched {counted} in {warmup + timed} '
+                           'rounds')
     inside = state['path']['active_shapes'].amin(0) != SHAPE_INDEX_NONE
     inside_share = inside.float().mean().item()
     # Lanes inside the ball whose next ray hits nothing: a list that the
@@ -462,7 +478,8 @@ def media_render(dev, card, launches, reset_launches, width, height,
 def bench_goldens(dev, repo, flat_mode, launches, reset_launches, rounds=24):
     """Phase 12: the golden frames of bench configs 1, 2, 4 and 5 (5 in
     both packet modes) through render_scene, each with the kernel its mode
-    launches once a round (configs 1 and 2 have no mesh: none)."""
+    launches once a round (configs 1 and 2 have no mesh: none) and
+    hit_attributes once a round."""
     from path_tracer_tpu_torch import render_scene
     from path_tracer_tpu_torch.scene import compile as scene_compile
     from path_tracer_tpu_torch.scene import procedural
@@ -487,8 +504,7 @@ def bench_goldens(dev, repo, flat_mode, launches, reset_launches, rounds=24):
         log('golden', name=name, packet_mode=mode, rel_err=rel,
             rel_limit=rel_lim, bias=bias, bias_limit=bias_lim,
             launches={k: v for k, v in counted.items() if v})
-        if any(v != (rounds if k == kernel[mode] else 0)
-               for k, v in counted.items()):
+        if not launched_once_a_trace(counted, rounds, kernel[mode]):
             raise RuntimeError(f"the '{mode}' {name} frame launched {counted}")
         if not (rel < rel_lim and bias < bias_lim):
             raise RuntimeError(f"the '{mode}' {name} golden frame is outside "
@@ -753,6 +769,142 @@ def shape_trace_phase(dev, card, ptxas_records, subset=262144,
     return rec
 
 
+def attribute_bytes(lanes, analytic_lanes, winners, table_bytes):
+    """(the resolved record's bytes, the layer's compulsory bytes) of one
+    launch of the hit-attribute kernel. The record is 20 words a lane, all
+    that scatter reads of it (benchmark/metrics/hit_attributes_roofline.py),
+    a lower bound on the layer's traffic whatever implements it. The layer
+    reads each lane's rays and hit record (10 words), the mesh kernel's
+    `winners` words a lane, an analytic lane's 3 coordinates and the tables
+    it gathers from once (`table_bytes`), and writes 15 words of the record
+    (material, position, normal, tangent, bitangent, uv), and its first 4
+    (time, shape, shape type, primitive) only where it merges winners: it
+    passes them, and complexity, through otherwise."""
+    record = lanes * 20 * 4
+    written = 15 + (4 if winners else 0)
+    traffic = (lanes * (10 + winners + written) * 4 + analytic_lanes * 12
+               + table_bytes)
+    return record, traffic
+
+
+# The cells of hit_attributes_phase: the Cornell box's mesh hits, merged
+# from the 'inst' mesh kernel's winners, and one_weekend_final's sphere
+# hits, resolved without winners.
+ATTRIBUTE_CELLS = ('cornell_box.offline_2880x2880',
+                   'one_weekend_final.offline_1200x675_w8')
+
+
+def hit_attributes_phase(dev, card, ptxas_records, seed=2 ** 31 + 19):
+    """Phase `hit_attributes`: the hit-attribute kernel
+    (csrc/hit_attributes.cu) against the plain chain it replaces
+    (ops/intersect.py::resolve_attributes_plain), both on the card, on
+    every lane of two benchmark cells' states in their third round with
+    tracing off (the instantiations a render runs): the Cornell box at
+    2880x2880 (8,294,400 lanes, 'inst' mode) and one_weekend_final at
+    1200x675 with 8 waves (6,480,000 lanes, no winners). The inputs
+    `trace` hands the kernel are captured, then both run on them, bit for
+    bit in every field of every lane (a difference fails the run), timed
+    in turns and cold (after 384 MiB written), beside the two bounds of
+    attribute_bytes over HBM bandwidth and `ptxas`'s registers and spills.
+    Returns the records by cell."""
+    import types
+
+    import torch
+
+    from benchmark.harness.cell import load_cell
+    from path_tracer_tpu_torch.core import constants
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.ops import hit_attributes, intersect
+    from path_tracer_tpu_torch.scene import model
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+    from test_torch_cuda import same_bits
+
+    api = types.SimpleNamespace(**{
+        k: v for m in (constants, model) for k, v in vars(m).items()
+        if not k.startswith('_')})
+    regs = [r for r in ptxas_records if r['source'] == 'hit_attributes.cu']
+    records = {}
+    for name in ATTRIBUTE_CELLS:
+        cell = load_cell(name)
+        width, height = cell.traffic['width'], cell.traffic['height']
+        packed = compile_scene(cell.maker.make_scene(api, cell.config),
+                               aspect_ratio=width / height, device=dev)
+        layout = intersect.SceneLayout.from_packed(packed)
+        config = wavefront.RenderConfig(
+            width=width, height=height, waves=cell.traffic.get('waves', 1),
+            flags=(constants.RENDER_FLAG_ACCUMULATE
+                   | constants.RENDER_FLAG_SAMPLE_JITTER),
+            camera_model=packed.host_camera_models[0])
+        state = wavefront.reset(packed, config, seed)
+        wavefront.render(
+            packed, config, 2, state=state, layout=layout,
+            termination_probability=cell.traffic['termination_probability'])
+        o, d = state['origin'], state['direction']
+        del state
+        captured = []
+        launch = hit_attributes.hit_attributes
+        hit_attributes.hit_attributes = (
+            lambda *a, **k: captured.append(a) or launch(*a, **k))
+        try:
+            intersect.trace(packed, layout, o, d)
+        finally:
+            hit_attributes.hit_attributes = launch
+        (_, _, _, _, hit, winners), = captured
+
+        def kernel():
+            return launch(packed, layout, o, d, hit, winners)
+
+        def plain():
+            return intersect.resolve_attributes_plain(packed, layout, o, d,
+                                                      hit, winners)
+
+        got, want = kernel(), plain()
+        equal = {k: bool(same_bits(got[k], want[k])) for k in want}
+        lanes = o.shape[1]
+        hits = want['shape'] != constants.SHAPE_INDEX_NONE
+        mesh = want['shape_type'] == constants.SHAPE_TYPE_MESH_INSTANCE
+        mesh_hits = int((hits & mesh).sum())
+        analytic_hits = int((hits & ~mesh).sum())
+        analytic = int((~mesh).sum())
+        del got, want
+        ms = time_in_turns({'kernel': kernel, 'plain': plain}, TIMING_REPS)
+        flush_buffer = torch.empty(96 * 2 ** 20, dtype=torch.float32,
+                                   device=dev)
+        ms_cold = cuda_ms(kernel, flush=flush_buffer.zero_)
+        del flush_buffer
+        tables = (packed.shape_material, packed.shape_world_from_object,
+                  packed.shape_object_from_world)
+        if winners is not None:
+            tables += (packed.inst_attrs, packed.inst_aux)
+        record_bytes, traffic_bytes = attribute_bytes(
+            lanes, analytic, 0 if winners is None else len(winners),
+            sum(x.numel() * x.element_size() for x in tables))
+        record_ms = 1e3 * record_bytes / PEAK_BYTES_S
+        traffic_ms = 1e3 * traffic_bytes / PEAK_BYTES_S
+        rec = records[name] = dict(
+            nvidia_smi=card, cell=name, lanes=lanes,
+            mode='none' if winners is None else layout.packet_mode,
+            mesh_hits=mesh_hits, analytic_hits=analytic_hits,
+            analytic_lanes=analytic, equal=equal, kernel_ms=ms['kernel'],
+            kernel_ms_cold=ms_cold, plain_ms=ms['plain'],
+            speedup=ms['plain'] / ms['kernel'], record_bytes=record_bytes,
+            record_bound_ms=record_ms, traffic_bytes=traffic_bytes,
+            traffic_bound_ms=traffic_ms, bound_by='bytes',
+            roofline_pct=100.0 * record_ms / ms['kernel'],
+            traffic_pct=100.0 * traffic_ms / ms['kernel'],
+            registers=[r['registers'] for r in regs],
+            spill_bytes=[r['spill_store_bytes'] + r['spill_load_bytes']
+                         for r in regs])
+        log('hit_attributes', **rec)
+        del packed, o, d, hit, winners, kernel, plain
+        torch.cuda.empty_cache()
+        engaged = mesh_hits if rec['mode'] != 'none' else analytic_hits
+        if not all(equal.values()) or engaged < lanes // 2:
+            raise RuntimeError('the hit-attribute kernel disagrees with the '
+                               f'plain chain in {name}')
+    return records
+
+
 def tree_map(fn, tree):
     """fn over the leaves of a nested dict (a render state)."""
     if isinstance(tree, dict):
@@ -844,7 +996,8 @@ def terrain_render(dev, card, packed, layout, launches, reset_launches,
     """Phase 15: config 6 at width x height with `waves` sample waves
     through `render`: warm-up and timed rounds, Mrays/s (every round
     traces one ray per slot), round ms, peak memory and the kernels
-    launched (inst_trace once a round, nothing else), then the device
+    launched (inst_trace and hit_attributes once a round, nothing
+    else), then the device
     time by kernel over `profile_rounds` more rounds. Returns the state
     and inst_trace's launches in the warm-up and timed rounds."""
     import torch
@@ -871,10 +1024,9 @@ def terrain_render(dev, card, packed, layout, launches, reset_launches,
         round_ms=1e3 * elapsed / timed, launches=counted,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         samples=float(accum['count'].sum()), finite=finite, card=card)
-    for name, count in counted.items():
-        if count != (warmup + timed if name == 'inst_trace' else 0):
-            raise RuntimeError(f'config 6 at waves={waves} launched {name} '
-                               f'{count} times in {warmup + timed} rounds')
+    if not launched_once_a_trace(counted, warmup + timed):
+        raise RuntimeError(f'config 6 at waves={waves} launched {counted} in '
+                           f'{warmup + timed} rounds')
     if not (finite and float(accum['count'].sum()) > 0):
         raise RuntimeError(f'config 6 at waves={waves}: the accumulator is '
                            'not finite or holds no sample')
@@ -1043,7 +1195,7 @@ def terrain_golden(dev, repo, packed, layout, launches, reset_launches,
                    rounds=24):
     """Config 6's golden frame (192x108, 24 rounds, seed 123, one wave),
     rendered on the tables compiled in phase 14, within bench.py's bands;
-    inst_trace once a round."""
+    inst_trace and hit_attributes once a round."""
     from path_tracer_tpu_torch.integrator import wavefront
     from path_tracer_tpu_torch.integrator.resolve import resolve
 
@@ -1057,8 +1209,7 @@ def terrain_golden(dev, repo, packed, layout, launches, reset_launches,
     log('golden', name='6_terrain_stream', packet_mode='inst', rel_err=rel,
         rel_limit=rel_lim, bias=bias, bias_limit=bias_lim,
         launches={k: v for k, v in counted.items() if v})
-    if any(v != (rounds if k == 'inst_trace' else 0)
-           for k, v in counted.items()):
+    if not launched_once_a_trace(counted, rounds):
         raise RuntimeError(f'the 6_terrain_stream frame launched {counted}')
     if not (rel < rel_lim and bias < bias_lim):
         raise RuntimeError('the 6_terrain_stream golden frame is outside its '
@@ -1191,7 +1342,8 @@ def cli_phase(repo, width=192, height=108, rounds=8):
 
 def session_phase(dev, card, launches, reset_launches, width, height):
     """Phase 21: a Session on the viking hall at width x height: restart
-    and steady frame ms (inst_trace once a round), with the default
+    and steady frame ms (inst_trace and hit_attributes once a round),
+    with the default
     (specialized) layout and with the generic one, a material edit
     through the incremental compile against a full compile (the same
     frame bit for bit), preview ms in all seven modes, pick ms, and the
@@ -1239,9 +1391,8 @@ def session_phase(dev, card, launches, reset_launches, width, height):
     generic_restart_ms = host_ms(
         lambda: (generic.move_camera(), generic.frame())[1], reps=3)
     del generic
-    if (steady_launches['inst_trace'] != 6 or restart_launches['inst_trace'] != 8
-            or any(v for k, v in {**steady_launches, **restart_launches}.items()
-                   if k != 'inst_trace')):
+    if not (launched_once_a_trace(steady_launches, 6)
+            and launched_once_a_trace(restart_launches, 8)):
         raise RuntimeError(f'Session frames launched {steady_launches} / '
                            f'{restart_launches}')
 
@@ -1453,9 +1604,7 @@ def viewer_phase(dev, card, launches, reset_launches, width, height):
         material_edit_poll_ms=edit_ms, material_edit_total_ms=edit_total_ms,
         edit_frame_equals_full_compile=edit_equal, preview_poll_ms=preview_ms,
         status=status, generic_steady_poll_ms=generic_ms, card=card)
-    if not (poll_launches['inst_trace'] == 10
-            and all(v == 0 for k, v in poll_launches.items()
-                    if k != 'inst_trace')):
+    if not launched_once_a_trace(poll_launches, 10):
         raise RuntimeError(f'10 viewer polls launched {poll_launches}')
     if not (edit_equal and picked['shape'] >= 0 and status['spp'] > 0):
         raise RuntimeError('viewer: the edited frame differs from a full '
@@ -1615,8 +1764,7 @@ def sharded_phase(dev, card, launches, reset_launches, width, height,
             if not equal:
                 raise RuntimeError(f'the sharded render at waves={waves} '
                                    'differs from wavefront.render')
-            if any(v != (warmup + timed if k == 'inst_trace' else 0)
-                   for k, v in counted.items()):
+            if not launched_once_a_trace(counted, warmup + timed):
                 raise RuntimeError(f'the sharded render launched {counted}')
             launched += counted['inst_trace']
     finally:
@@ -1663,7 +1811,7 @@ def main():
         return {name: counted.get('kernel.' + name, 0)
                 for name in ('inst_trace', 'wide_trace5', 'wide_trace',
                              'inst_trace_simple', 'wide_trace5_simple',
-                             'wide_trace_simple')}
+                             'wide_trace_simple', 'hit_attributes')}
 
     dev = torch.device(DEVICE)
     card = card_line()
@@ -1933,10 +2081,9 @@ def main():
         elapsed = time.perf_counter() - t0
         counted = launches()
         rounds = WARMUP_ROUNDS + TIMED_ROUNDS
-        for name, count in counted.items():
-            if count != (rounds if name == kernel_name else 0):
-                raise RuntimeError(f"the '{mode}' render launched {name} "
-                                   f'{count} times in {rounds} rounds')
+        if not launched_once_a_trace(counted, rounds, kernel_name):
+            raise RuntimeError(f"the '{mode}' render launched {counted} in "
+                               f'{rounds} rounds')
         accum = state['accum']
         if not (bool(torch.isfinite(accum['xyz']).all())
                 and float(accum['count'].sum()) > 0):
@@ -2077,6 +2224,11 @@ def main():
     torch.cuda.empty_cache()
     lap('shape_trace')
 
+    # -- 13d. the hit-attribute kernel on two benchmark cells' lanes --------
+    records['hit_attributes'] = hit_attributes_phase(dev, card, ptxas_records)
+    torch.cuda.empty_cache()
+    lap('hit_attributes')
+
     # -- 14-18. bench config 6 at 1920x1080 with 1 and 4 waves ----------------
     torch.cuda.empty_cache()
     terrain, terrain_layout, inst_bytes = terrain_compile(dev, WIDTH, HEIGHT)
@@ -2142,7 +2294,8 @@ def main():
         wide_trace5=('trace_packet.cu', 'path_tracer_tpu/ops/trace_packet.py:85'),
         wide_trace=('trace_wide.cu', 'path_tracer_tpu/ops/trace_wide.py:97'),
         openpbr_walk=('openpbr_walk.cu', None),
-        shape_trace=('shape_trace.cu', None))
+        shape_trace=('shape_trace.cu', None),
+        hit_attributes=('hit_attributes.cu', None))
     print(json.dumps({'kernels': [dict(
         name=name, route='cuda',
         source='path_tracer_tpu_torch/csrc/' + sources[name][0],

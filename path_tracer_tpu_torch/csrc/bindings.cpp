@@ -9,6 +9,7 @@
 
 #include <vector>
 
+#include "hit_attributes.h"
 #include "openpbr_walk.h"
 
 extern "C" int inst_trace_launch(const float* nodes, const float* tris,
@@ -199,6 +200,58 @@ int shape_trace(const torch::Tensor& nodes, const torch::Tensor& rows,
       reinterpret_cast<void*>(stream));
 }
 
+// Queues csrc/hit_attributes.cu in `mode` (HitAttributesMode): `in` and
+// `out` hold the tensors of ops/hit_attributes.py's KERNEL_INPUTS and
+// KERNEL_OUTPUTS in their order (the fields of HitAttributesArgs; a field
+// the mode does not read or write is an empty tensor), `stats` empty or the
+// kernel's five int64 counters. Raises if the launch was refused.
+void hit_attributes(int64_t mode, const std::vector<torch::Tensor>& in,
+                    const std::vector<torch::Tensor>& out, int64_t n_aux,
+                    torch::Tensor& stats, int64_t stream) {
+  TORCH_CHECK(in.size() == 20 && out.size() == 10,
+              "hit_attributes takes 20 inputs and 10 outputs");
+  HitAttributesArgs a;
+  a.n = in[2].numel();
+  a.n_shapes = in[9].numel();
+  a.n_faces = in[10].numel() / 3;
+  a.n_vertices = in[11].numel() / 3;
+  a.n_aux = n_aux;
+  a.origin = in[0].data_ptr<float>();
+  a.direction = in[1].data_ptr<float>();
+  a.time = in[2].data_ptr<float>();
+  a.shape = in[3].data_ptr<int32_t>();
+  a.shape_type = in[4].data_ptr<int32_t>();
+  a.primitive = in[5].data_ptr<int32_t>();
+  a.coords = in[6].data_ptr<float>();
+  a.world_from_object = in[7].data_ptr<float>();
+  a.object_from_world = in[8].data_ptr<float>();
+  a.material = in[9].data_ptr<int32_t>();
+  a.face_vertices = in[10].data_ptr<int32_t>();
+  a.vertex_normals = in[11].data_ptr<float>();
+  a.vertex_uvs = in[12].data_ptr<float>();
+  a.t = in[13].data_ptr<float>();
+  a.face = in[14].data_ptr<int32_t>();
+  a.fu = in[15].data_ptr<float>();
+  a.fv = in[16].data_ptr<float>();
+  a.inst = in[17].data_ptr<int32_t>();
+  a.attrs = in[18].data_ptr<float>();
+  a.aux = in[19].data_ptr<float>();
+  a.time_out = out[0].data_ptr<float>();
+  a.shape_out = out[1].data_ptr<int32_t>();
+  a.shape_type_out = out[2].data_ptr<int32_t>();
+  a.primitive_out = out[3].data_ptr<int32_t>();
+  a.material_out = out[4].data_ptr<int32_t>();
+  a.position = out[5].data_ptr<float>();
+  a.normal = out[6].data_ptr<float>();
+  a.tangent = out[7].data_ptr<float>();
+  a.bitangent = out[8].data_ptr<float>();
+  a.uv = out[9].data_ptr<float>();
+  a.stats = stats.numel() ? stats.data_ptr<int64_t>() : nullptr;
+  hit_attributes_launch(&a, static_cast<int>(mode),
+                        reinterpret_cast<void*>(stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 // Queues csrc/openpbr_walk.cu: `in` and `out` hold the tensors of
 // models/openpbr.py's KERNEL_INPUTS and KERNEL_OUTPUTS in their order (the
 // fields of OpenpbrWalkArgs), `where` is empty or the (N,) bool mask of the
@@ -266,6 +319,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "(csrc/trace_wide_simple.cu)");
   m.def("shape_trace", &shape_trace,
         "Closest analytic-shape hit over a shape BVH (csrc/shape_trace.cu)");
+  m.def("hit_attributes", &hit_attributes,
+        "The resolved hit record, one thread a lane (csrc/hit_attributes.cu)");
   m.def("openpbr_walk", &openpbr_walk,
         "The OpenPBR BSDF sample, one thread a lane (csrc/openpbr_walk.cu)");
 }

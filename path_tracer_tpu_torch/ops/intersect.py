@@ -11,7 +11,10 @@ of ops/trace_inst.py in 'inst' packet mode (the mode compile.py picks
 for every scene with a mesh) or the world-flattened BVH8 traversal of
 ops/trace_packet.py in 'flat' mode; or, on request, through the
 portable per-instance BVH2 traversal `traverse_mesh_bvh`, which is
-plain PyTorch on either device.
+plain PyTorch on either device. The hit attributes that follow
+(`resolve_attributes`) take one launch of the kernel of
+ops/hit_attributes.py on the card, and their plain version,
+`resolve_attributes_plain`, on the CPU.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ from ..scene.compile import (
     SHAPE_STACK_DEPTH,
 )
 from ..utils import profiling
-from . import trace_inst, trace_packet, trace_shapes
+from . import hit_attributes, trace_inst, trace_packet, trace_shapes
 
 MAX_LEAF_FACES = 4   # faces per BVH2 leaf (scene/bvh.py)
 SHAPE_BASE = trace_inst.INST_BASE   # shape BVH leaf metas: base + shape row
@@ -307,6 +310,13 @@ _INTERSECTORS = {
 # tests every slot a ray and visits no node.
 ANALYTIC_NODES = 'pt.trace.analytic.nodes'
 ANALYTIC_TESTS = 'pt.trace.analytic.tests'
+
+
+# Lanes of the attribute resolve by what they hit (utils/profiling.py),
+# kept while tracing is on: on the card csrc/hit_attributes.cu adds them
+# itself, and the plain version counts them on the host's side.
+ATTRIBUTE_LANES = 'pt.trace.attributes.lanes'
+ATTRIBUTE_BINS = ('miss', 'mesh', 'plane', 'sphere', 'cube')
 
 
 def intersect_analytic(packed, layout: SceneLayout, origin, direction, hit):
@@ -746,6 +756,11 @@ def resolve_hit_attributes(packed, layout: SceneLayout, origin, direction, hit):
                      torch.where(is_plane, plane_uv,
                                  torch.where(is_sphere, sphere_uv, cube_uv)))
 
+    if profiling.enabled():
+        # Bin 0 the misses, then mesh, plane, sphere, cube.
+        profiling.count(ATTRIBUTE_LANES,
+                        torch.where(valid, stype + 1, torch.zeros_like(stype)),
+                        bins=ATTRIBUTE_BINS)
     return dict(
         time=hit['time'],
         shape=hit['shape'],
@@ -760,6 +775,63 @@ def resolve_hit_attributes(packed, layout: SceneLayout, origin, direction, hit):
         complexity=hit.get('complexity', torch.zeros(
             n, dtype=torch.int32, device=origin.device)),
     )
+
+
+def resolve_attributes(packed, layout: SceneLayout, origin, direction, hit,
+                       winners=None):
+    """The resolved hit record of `trace`: the mesh kernel's `winners` in
+    lane order ((t, face, fu, fv, inst) in 'inst' mode, (t, face, fu, fv)
+    in 'flat'; None where no mesh kernel ran: the portable traversal's
+    mesh hits carry barycentrics) merged into `hit`, then the attributes
+    of resolve_hit_attributes. On a CUDA device one launch of
+    csrc/hit_attributes.cu (ops/hit_attributes.py), which adds the
+    ATTRIBUTE_LANES counter itself while tracing is on; on the CPU the
+    plain version, `resolve_attributes_plain`."""
+    if origin.device.type == 'cuda':
+        return hit_attributes.hit_attributes(
+            packed, layout, origin, direction, hit, winners,
+            stats=profiling.kernel_counts(ATTRIBUTE_LANES, origin.device,
+                                          bins=ATTRIBUTE_BINS))
+    return resolve_attributes_plain(packed, layout, origin, direction, hit,
+                                    winners)
+
+
+def resolve_attributes_plain(packed, layout: SceneLayout, origin, direction,
+                             hit, winners=None):
+    """`resolve_attributes` in plain PyTorch on any device: each winner
+    whose face is set replaces the lane's hit, with its attribute row's
+    normal (normalized) and uv, then resolve_hit_attributes."""
+    if winners is None:
+        return resolve_hit_attributes(packed, layout, origin, direction, hit)
+    if layout.packet_mode == 'inst':
+        t, face, fu, fv, inst = winners
+        normal, uv, shp = trace_inst.resolve_inst_attributes(
+            packed.inst_attrs, packed.inst_aux, face, fu, fv, inst,
+            n_instances=layout.instance_slots)
+    else:
+        t, face, fu, fv = winners
+        normal, uv, shp = trace_packet.resolve_wide_attributes(
+            packed.wide_attrs, face, fu, fv)
+    improved = face >= 0
+    hit = dict(
+        time=torch.where(improved, t, hit['time']),
+        shape=torch.where(improved, shp, hit['shape']),
+        shape_type=torch.where(
+            improved,
+            torch.full_like(hit['shape_type'], SHAPE_TYPE_MESH_INSTANCE),
+            hit['shape_type']),
+        # Face slot into the trace tables.
+        primitive=torch.where(improved, face, hit['primitive']),
+        coords=hit['coords'],
+        # The kernels' own per-ray counters are not read here: no render
+        # round launches the counting instantiation (nor does the JAX
+        # package's trace). viewer/preview.py reads them.
+        complexity=hit['complexity'],
+        mesh_normal=torch.where(improved, safe_normalize(normal),
+                                torch.zeros_like(normal)),
+        mesh_uv=torch.where(improved, uv, torch.zeros_like(uv)),
+    )
+    return resolve_hit_attributes(packed, layout, origin, direction, hit)
 
 
 def _permute(perm, *rows):
@@ -820,36 +892,8 @@ def trace(packed, layout: SceneLayout, origin, direction,
             if sort_rays:
                 out = _unpermute(perm, *out)
             with profiling.span('pt.trace.attributes'):
-                if layout.packet_mode == 'inst':
-                    t, face, fu, fv, inst = out
-                    normal, uv, shp = trace_inst.resolve_inst_attributes(
-                        packed.inst_attrs, packed.inst_aux, face, fu, fv, inst,
-                        n_instances=layout.instance_slots)
-                else:
-                    t, face, fu, fv = out
-                    normal, uv, shp = trace_packet.resolve_wide_attributes(
-                        packed.wide_attrs, face, fu, fv)
-                improved = face >= 0
-                hit = dict(
-                    time=torch.where(improved, t, hit['time']),
-                    shape=torch.where(improved, shp, hit['shape']),
-                    shape_type=torch.where(
-                        improved,
-                        torch.full_like(hit['shape_type'], SHAPE_TYPE_MESH_INSTANCE),
-                        hit['shape_type']),
-                    # Face slot into the trace tables.
-                    primitive=torch.where(improved, face, hit['primitive']),
-                    coords=hit['coords'],
-                    # The kernels' own per-ray counters are not read here: no
-                    # render round launches the counting instantiation (nor does
-                    # the JAX package's trace). viewer/preview.py reads them.
-                    complexity=hit['complexity'],
-                    mesh_normal=torch.where(improved, safe_normalize(normal),
-                                            torch.zeros_like(normal)),
-                    mesh_uv=torch.where(improved, uv, torch.zeros_like(uv)),
-                )
-                return resolve_hit_attributes(packed, layout, origin, direction,
-                                              hit)
+                return resolve_attributes(packed, layout, origin, direction,
+                                          hit, out)
 
         # The portable traversal. Padded slots point at the degenerate
         # root, which no ray enters.
@@ -861,4 +905,4 @@ def trace(packed, layout: SceneLayout, origin, direction,
                 transform_point(from_world, origin),
                 transform_vector(from_world, direction), hit, shape_index)
         with profiling.span('pt.trace.attributes'):
-            return resolve_hit_attributes(packed, layout, origin, direction, hit)
+            return resolve_attributes(packed, layout, origin, direction, hit)

@@ -15,8 +15,8 @@ One facility for what the program records of itself:
   (Python ints) always add into one dict. Device counts (tensors) add
   only while tracing is on, into persistent device tensors, with no
   `.item()` and no synchronise; `counters()` reads both.
-  `kernel_counts(names, device)` hands a hand-written kernel such
-  tensors to add into itself, so that counting takes no launch.
+  `kernel_counts(names, device[, bins])` hands a hand-written kernel
+  such tensors to add into itself, so that counting takes no launch.
 
 The program's spans and counters are named `pt.<layer>...`, one per
 launch of a hand-written kernel `kernel.<name>`; `utils/log.py`'s
@@ -41,7 +41,7 @@ _local = threading.local()
 _records = []          # one (name, parent, t0_ns, t1_ns, tid) a span
 _host = {}             # name -> int
 _device = {}           # name -> (int64 tensor, bin labels or None)
-_kernel_counts = {}    # (names, device) -> the int64 tensor a kernel adds to
+_kernel_counts = {}    # (names, bins, device) -> int64 tensor a kernel adds to
 _generation = 0        # bumped by reset(): a span open across it records nothing
 _OFF = contextlib.nullcontext()
 
@@ -165,22 +165,28 @@ def count(name, value=1, bins=None, where=None):
     acc[0].add_(add)
 
 
-def kernel_counts(names, device):
+def kernel_counts(names, device, bins=None):
     """Device counts that a kernel adds to itself while tracing is on: one
     int64 tensor on `device` with an element for each of `names`, kept
     and read as `count`'s device counts are (the same tensor until the
-    next reset). None while tracing is off: the kernel then counts
-    nothing."""
+    next reset); with `bins`, `names` is one name and the tensor its
+    histogram, an element for each label of `bins`. None while tracing
+    is off: the kernel then counts nothing."""
     if not _on:
         return None
-    key = (tuple(names), str(device))
+    bins = None if bins is None else tuple(bins)
+    names = names if bins else tuple(names)
+    key = (names, bins, str(device))
     with _lock:
         acc = _kernel_counts.get(key)
         if acc is None:
             acc = _kernel_counts[key] = torch.zeros(
-                len(names), dtype=torch.int64, device=device)
-            for k, name in enumerate(names):
-                _device[name] = (acc[k], None)
+                len(bins or names), dtype=torch.int64, device=device)
+            if bins:
+                _device[names] = (acc, bins)
+            else:
+                for k, name in enumerate(names):
+                    _device[name] = (acc[k], None)
     return acc
 
 

@@ -19,6 +19,7 @@ with `python -m pytest tests/test_torch_cuda.py -m cuda`.
 
 import contextlib
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -1270,3 +1271,194 @@ def test_shape_trace_on_the_main_path(cuda):
     assert 'pt.trace.analytic' in names and got['kernel.shape_trace'] == 1
     assert got[intersect.ANALYTIC_NODES] == int(counts[0].sum())
     assert got[intersect.ANALYTIC_TESTS] == int(counts[1].sum())
+
+
+def mixed_scene():
+    """test_torch_trace_shapes.shapes_scene's planes, spheres and cubes
+    (60 shapes, ties included) beside three instances of a random
+    48-triangle mesh under rotations and non-uniform scales."""
+    import path_tracer_tpu_torch.scene.model as model
+    from test_torch_trace_shapes import shapes_scene
+
+    scene = shapes_scene(11, n=60)
+    rng = np.random.default_rng(5)
+    nrm = rng.normal(0, 1, (40, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    mesh = scene.create_mesh(
+        name='blob', positions=rng.normal(0, 1, (40, 3)).astype(np.float32),
+        normals=nrm, uvs=rng.uniform(0, 1, (40, 2)).astype(np.float32),
+        faces=rng.integers(0, 40, (48, 3)).astype(np.int32))
+    material = scene.create_material(model.MATERIAL_TYPE_BASIC_DIFFUSE)
+    for _ in range(3):
+        e = scene.create_entity(model.ENTITY_TYPE_MESH_INSTANCE, mesh=mesh,
+                                material=material)
+        e.transform.position = rng.uniform(-4, 4, 3).astype(np.float32)
+        e.transform.rotation = rng.uniform(0, 6.28, 3).astype(np.float32)
+        e.transform.scale = rng.uniform(0.5, 2.0, 3).astype(np.float32)
+        e.transform.scale_is_uniform = False
+    return scene
+
+
+# The layouts the hit-attribute kernel is held to its plain chain in:
+# 'inst' with one instance and with several, 'flat', analytic shapes alone
+# (no instance slot), every shape type beside mesh instances, and that
+# scene through the portable traversal (mesh hits with barycentrics).
+ATTRIBUTE_CASES = ('inst_one', 'inst_several', 'flat', 'one_weekend', 'mixed',
+                   'portable')
+
+
+def attribute_case(case, device):
+    """The compiled scene of an ATTRIBUTE_CASES case on `device`."""
+    import path_tracer_tpu_torch.scene.compile as tcompile
+    import path_tracer_tpu_torch.scene.model as model
+
+    if case == 'flat':
+        with flat_mode(tcompile):
+            return tcompile.compile_scene(blob_scene(model)[0], device=device)
+    scene = {'inst_one': lambda: blob_scene(model, n_instances=1)[0],
+             'inst_several': lambda: blob_scene(model)[0],
+             'one_weekend': one_weekend_scene, 'mixed': mixed_scene,
+             'portable': mixed_scene}[case]()
+    return tcompile.compile_scene(scene, aspect_ratio=1200 / 675, device=device)
+
+
+def attribute_trace_options(case):
+    """The options of `trace` in an ATTRIBUTE_CASES case, and whether
+    its attributes are resolved without the mesh kernel's winners."""
+    if case == 'portable':
+        return dict(use_packet=False), True
+    return {}, case == 'one_weekend'
+
+
+def same_bits(a, b):
+    """Equal to the bit: float32 compared as their int32 words, so that
+    NaNs and the sign of zero count."""
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def attribute_bins(record):
+    """The ATTRIBUTE_BINS counts of a resolved hit record: misses, then
+    mesh, plane, sphere and cube hits."""
+    from path_tracer_tpu_torch.ops import intersect
+
+    hits = record['shape'] != SHAPE_INDEX_NONE
+    lanes = torch.where(hits, record['shape_type'] + 1, 0)
+    counts = torch.bincount(lanes, minlength=5).tolist()
+    return dict(zip(intersect.ATTRIBUTE_BINS, counts))
+
+
+@pytest.mark.parametrize('case', ATTRIBUTE_CASES)
+def test_hit_attributes_kernel_matches_plain_chain(cuda, case, monkeypatch):
+    """csrc/hit_attributes.cu, as `trace` launches it, against the plain
+    chain (resolve_attributes_plain) on the card on the same inputs, bit
+    for bit in every field on every lane, misses included, on 65,536
+    camera (or random) rays and 65,536 bounce rays, with tracing off and
+    on (the kernel's two instantiations of each mode); one launch a trace,
+    and while tracing its lane bins equal those of the plain record and
+    sum to N."""
+    from path_tracer_tpu_torch.ops import hit_attributes, intersect
+
+    packed = attribute_case(case, cuda)
+    layout = intersect.SceneLayout.from_packed(packed)
+    captured = []
+    launch = hit_attributes.hit_attributes
+
+    def capture(*args, **kwargs):
+        captured.append(args)
+        return launch(*args, **kwargs)
+
+    rays = _shape_rays('one_weekend' if case == 'one_weekend' else 'seeded',
+                       packed, cuda)
+    monkeypatch.setattr(hit_attributes, 'hit_attributes', capture)
+    options, no_winners = attribute_trace_options(case)
+    seen = dict.fromkeys(intersect.ATTRIBUTE_BINS, 0)
+    for (o, d), traced in itertools.product(rays, (False, True)):
+        n = o.shape[1]
+        profiling.reset()
+        with profiling.tracing() if traced else contextlib.nullcontext():
+            got = intersect.trace(packed, layout, o, d, **options)
+            counted = profiling.counters()
+        assert counted['kernel.hit_attributes'] == 1
+        _, _, _, _, hit, winners = captured.pop()
+        assert (winners is None) == no_winners
+        want = intersect.resolve_attributes_plain(packed, layout, o, d, hit,
+                                                  winners)
+        assert list(got) == list(want)
+        for key in want:
+            assert same_bits(got[key], want[key]), (
+                key, traced, int((got[key] != want[key]).sum()))
+        if not traced:
+            assert intersect.ATTRIBUTE_LANES not in counted
+            continue
+        bins = counted[intersect.ATTRIBUTE_LANES]
+        assert bins == attribute_bins(want) and sum(bins.values()) == n
+        for k, v in bins.items():
+            seen[k] += v
+    assert seen['miss'] > 0
+    expect = {'inst_one': ('mesh',), 'inst_several': ('mesh',),
+              'flat': ('mesh',), 'one_weekend': ('sphere',),
+              'mixed': ('mesh', 'plane', 'sphere', 'cube'),
+              'portable': ('mesh', 'plane', 'sphere', 'cube')}[case]
+    assert all(seen[k] > 0 for k in expect), seen
+
+
+def test_hit_attributes_on_the_main_path(cuda):
+    """A render launches the kernel once a round through `trace` with no
+    option set, and a trace through the portable traversal launches it
+    once too."""
+    import path_tracer_tpu_torch as tpkg
+    import path_tracer_tpu_torch.scene.model as model
+    from path_tracer_tpu_torch.ops import intersect
+
+    scene, rng = blob_scene(model)
+    profiling.reset()
+    img = tpkg.render_scene(scene, 96, 54, spp_rounds=4, device=cuda)
+    assert launches('hit_attributes') == 4
+    assert bool(torch.isfinite(img).all())
+    packed = attribute_case('mixed', cuda)
+    layout = intersect.SceneLayout.from_packed(packed)
+    o, d, _ = _random_rays(rng, 4096, cuda)
+    profiling.reset()
+    portable = intersect.trace(packed, layout, o, d, use_packet=False)
+    assert launches('hit_attributes') == 1
+    kernel = intersect.trace(packed, layout, o, d)
+    assert launches('hit_attributes') == 2
+    # The two traversals agree on what each lane hit.
+    assert float((portable['shape'] == kernel['shape']).float().mean()) > 0.99
+
+
+def test_hit_attributes_wrapper_rejects_bad_input(cuda):
+    """The wrapper checks device, dtype and shape of every tensor it
+    hands the kernel before it launches."""
+    import path_tracer_tpu_torch.scene.model as model
+    from path_tracer_tpu_torch.core.constants import HIT_TIME_LIMIT
+    from path_tracer_tpu_torch.ops import hit_attributes, intersect, trace_inst
+
+    packed = attribute_case('inst_several', cuda)
+    layout = intersect.SceneLayout.from_packed(packed)
+    o, d, _ = _random_rays(np.random.default_rng(3), 256, cuda)
+    hit = intersect.make_hit(256, HIT_TIME_LIMIT, cuda)
+    winners = trace_inst.inst_trace(packed.inst_nodes, packed.inst_tris,
+                                    packed.inst_rows, o, d, hit['time'],
+                                    tlas_rows=layout.tlas_rows)
+
+    def run(o=o, d=d, hit=hit, winners=winners, **kwargs):
+        return hit_attributes.hit_attributes(packed, layout, o, d, hit,
+                                             winners, **kwargs)
+
+    run()
+    bad_fields = (dict(time=hit['time'].double()),
+                  dict(shape=hit['shape'].float()),
+                  dict(coords=hit['coords'][:2]),
+                  dict(primitive=hit['primitive'][:128]),
+                  dict(coords=torch.zeros((256, 3), device=cuda).T))
+    for bad in (dict(o=o.double()), dict(o=o.cpu()), dict(d=d[:2]),
+                dict(winners=winners[:4]),
+                dict(winners=(winners[0], winners[1].float(), *winners[2:])),
+                dict(winners=(winners[0][:64], *winners[1:])),
+                dict(stats=torch.zeros(4, dtype=torch.int64, device=cuda)),
+                *(dict(hit=dict(hit, **f)) for f in bad_fields)):
+        with pytest.raises(ValueError):
+            run(**bad)

@@ -138,6 +138,25 @@ def test_kernel_counts_are_device_counts_a_kernel_adds_into():
     assert profiling.counters() == {'pt.k.a': 0, 'pt.k.b': 0}
 
 
+
+def test_kernel_counts_with_bins_are_a_histogram_a_kernel_adds_into():
+    """With `bins`, `kernel_counts` hands out one zeroed int64 tensor for
+    one name, an element a bin, the same one until a reset, which
+    `counters()` reads as that name's histogram; None while tracing is
+    off."""
+    bins = ('miss', 'hit')
+    assert profiling.kernel_counts('pt.k.h', 'cpu', bins=bins) is None
+    with profiling.tracing():
+        acc = profiling.kernel_counts('pt.k.h', 'cpu', bins=bins)
+        assert acc.dtype == torch.int64 and acc.tolist() == [0, 0]
+        assert profiling.kernel_counts('pt.k.h', 'cpu', bins=list(bins)) is acc
+        acc += torch.tensor([3, 4])      # what the kernel does on the card
+        assert profiling.counters() == {'pt.k.h': {'miss': 3, 'hit': 4}}
+    with profiling.tracing():
+        fresh = profiling.kernel_counts('pt.k.h', 'cpu', bins=bins)
+        assert fresh is not acc and fresh.tolist() == [0, 0]
+
+
 def test_log_timer_opens_a_span_on_the_span_clock(tmp_path):
     sink = tmp_path / 'events.jsonl'
     log.enable(str(sink))
@@ -219,3 +238,28 @@ def test_round_state_is_bit_identical_with_tracing_on_and_off(openpbr_round):
     assert a.keys() == b.keys()
     for key in a:
         assert np.array_equal(a[key].numpy(), b[key].numpy()), key
+
+
+@pytest.mark.parametrize('use_packet', [None, False], ids=['packet', 'portable'])
+def test_trace_counts_attribute_lanes_by_what_they_hit(use_packet):
+    """`pt.trace.attributes.lanes` bins every lane of a trace by what it
+    hit (the plain chain counts on the CPU): misses, mesh, plane, sphere
+    and cube hits, summing to the lanes; nothing while tracing is off."""
+    from path_tracer_tpu_torch.ops import intersect
+    from test_torch_cuda import attribute_bins, attribute_case
+
+    packed = attribute_case('mixed', 'cpu')
+    layout = SceneLayout.from_packed(packed)
+    rng = np.random.default_rng(4)
+    n = 3000
+    o = torch.from_numpy(rng.uniform(-7, 7, (3, n)).astype(np.float32))
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=0))
+    with profiling.tracing():
+        hit = intersect.trace(packed, layout, o, d, use_packet=use_packet)
+        bins = profiling.counters()[intersect.ATTRIBUTE_LANES]
+    assert bins == attribute_bins(hit) and sum(bins.values()) == n
+    assert all(v > 0 for v in bins.values()), bins
+    profiling.reset()
+    intersect.trace(packed, layout, o, d, use_packet=use_packet)
+    assert intersect.ATTRIBUTE_LANES not in profiling.counters()
