@@ -16,34 +16,28 @@ hand-written kernels against their plain PyTorch versions:
      bytes of the tables;
   4. each kernel -- inst_trace, wide_trace5 (v5) and wide_trace (v3) --
      against its plain version on the 2,073,600 primary rays of `reset`
-     and on the rays after 2 rounds, in ray_sort_key order, for each leaf
-     format, bit for bit (kernel and plain version take the same per-ray
-     traversal order): a 65,536-ray subset of every set, and all rays of
-     the bounce set in the default format. What is compared and timed is
-     the launch the render paths make (for wide_trace, the launch of the
-     direct call); the launch with the per-ray counters, another
-     instantiation, must give the same. The baseline kernels
-     (variant='simple') likewise against the plain versions without the
-     pop cull, and the pop cull's effect (`pop_cull`: the kernel with it
-     and the baseline without it must agree on every ray, in every leaf
-     format, t and face); kernel time warm
-     and cold in sorted and in lane order (CUDA events, median of 7; cold
-     = a buffer larger than L2 written before each launch), plain time,
-     and the kernel's bound from its counted pops and triangles;
-     `kernel_anatomy`: what each kernel measured of itself (SIMT
-     efficiency of each loop body, distinct rows a warp fetches in a pass,
-     deepest stack, culled pops); `kernel_ab`:
-     the kernel and its baseline in turns, on rays in sorted and in lane
-     order;
+     and on the rays after 2 rounds, in lane order (the order the render
+     paths launch in), for each leaf format, bit for bit (kernel and
+     plain version take the same per-ray traversal order): a 65,536-ray
+     subset of every set, and all rays of the bounce set in the default
+     format. What is compared and timed is the launch the render paths
+     make (for wide_trace, the launch of the direct call); the launch
+     with the per-ray counters, another instantiation, must give the
+     same. The pop cull's effect (`pop_cull`: the kernel with it and the
+     plain version without it must agree on every ray of the subset, in
+     every leaf format, t and face); kernel time warm and cold (CUDA
+     events, median of 7; cold = a buffer larger than L2 written before
+     each launch), plain time, and the kernel's bound from its counted
+     pops and triangles; `kernel_anatomy`: what each kernel measured of
+     itself (SIMT efficiency of each loop body, distinct rows a warp
+     fetches in a pass, deepest stack, culled pops);
   5. the three kernels against one another on the bounce rays (hit masks
      equal on > 99.5% of the rays, t within 5e-4 on > 99.9% of the rays
      all three hit);
   6. the 'inst' path end to end: `render` at 1920x1080, 6 warm-up and 24
      timed rounds, Mrays/s; inst_trace's launch count must equal the
-     rounds run and the baseline kernels are never launched; the time of
-     `trace` alone with and without the ray sort on steady-state and on
-     primary rays (`trace_sort`), and, from a profile of 4 more rounds, the
-     device time by kernel;
+     rounds run; the time of `trace` alone on steady-state rays, and, from
+     a profile of 4 more rounds, the device time by kernel;
   7. the same for the 'flat' path: wide_trace5 is launched once a round
      and inst_trace not at all;
   8. `trace(use_packet=False)`, the portable BVH2 traversal, against
@@ -92,42 +86,41 @@ hand-written kernels against their plain PyTorch versions:
  15. config 6 at 1920x1080 through `render` with waves=1 and waves=4, 2
      warm-up and 6 timed rounds each: Mrays/s, round ms, peak memory,
      inst_trace once a round and no other kernel;
- 16. `trace` with and without the ray sort on the waves=4 state's rays;
- 17. inst_trace on config 6's bounce rays: warm and cold ms in lane and
-     sorted order, bit-equal to its plain version on a 65,536-ray subset,
-     its bound from the counted pops and triangles, and the pop cull on
-     all its rays (0 rays may differ from the baseline);
- 18. resolve of the waves=4 state 8 times: the frames must be equal bit
+ 16. inst_trace on config 6's bounce rays: warm and cold ms in lane
+     order, bit-equal to its plain version on a 65,536-ray subset, its
+     bound from the counted pops and triangles, and the pop cull on that
+     subset (0 rays may differ from the plain version without it);
+ 17. resolve of the waves=4 state 8 times: the frames must be equal bit
      for bit, and the fold of the same slots shuffled too; the fold timed
      against the index_add_ fold it replaced;
      config 6's golden frame (192x108, 24 rounds, seed 123, one wave) on
      the same tables within bench.py's bands;
- 19. `checkpoint`: the viking hall at 1920x1080 through render_resilient
+ 18. `checkpoint`: the viking hall at 1920x1080 through render_resilient
      with one injected failure, bit-equal to the uninterrupted render;
      the checkpoint loaded on the CPU; save and load ms, file size;
- 20. `cli`: `python -m path_tracer_tpu_torch render` of the reference
+ 19. `cli`: `python -m path_tracer_tpu_torch render` of the reference
      schema's scene file and `... demo cornell`, subprocesses on the card
      at 192x108, 8 rounds: exit 0 and a PNG that is not black;
- 21. `session`: app.Session on the viking hall at 960x540: steady and
+ 20. `session`: app.Session on the viking hall at 960x540: steady and
      restart frame ms, a material edit through the incremental compile
      bit-equal to a full compile's frame, preview ms in all seven modes,
      pick ms, the mesh-complexity heatmap non-zero on mesh pixels with
      the kernel's per-ray counters equal to the plain version's; the
      steady and restart frames of the default (specialized) layout and of
      the generic one;
- 22. `viewer`: viewer/server.py over a Session on the viking hall at
+ 21. `viewer`: viewer/server.py over a Session on the viking hall at
      960x540, driven over http://127.0.0.1: 10 /frame.png polls (inst_trace
      once a poll), a steady poll split into Session.frame, the copy to the
      host, encode_png and HTTP, /move and the restart poll, /pick on the
      hall, /material/update and the poll after it bit-equal to a full
      compile's frame, a preview poll in each of the seven modes, /status,
      and the steady poll of the generic layout;
- 23. `cli_tools`: `python -m path_tracer_tpu_torch spectrum ... --png` and
+ 22. `cli_tools`: `python -m path_tracer_tpu_torch spectrum ... --png` and
      `bvhdump --demo viking --depth 2` as subprocesses on the card (exit
      0, bvh_statistics of the card's compile equal to the CPU's and to the
      CLI's), and `view --demo cornell --port 0` as a subprocess, one
      /frame.png fetched, then stopped;
- 24. `sharded`: parallel/render.py at world size 1 over NCCL, the viking
+ 23. `sharded`: parallel/render.py at world size 1 over NCCL, the viking
      hall at 1920x1080 with 1 and 4 waves, 2 + 6 rounds: Mrays/s beside
      phase 6's, merge_accumulator ms, peak memory, the merged accumulator
      bit-equal to wavefront.render's; then dryrun_multichip over every
@@ -314,6 +307,20 @@ def compare(kernel_name, set_name, kernel_out, plain_out):
         raise RuntimeError(f'the {kernel_name} kernel disagrees with its '
                            f'plain version on {set_name}')
     return max_err, agree
+
+
+def pop_cull(kernel_out, plain_out, kernel_name, set_name, leaf_fmt):
+    """The pop cull keeps every hit: the kernel, which culls, and the
+    plain version without the cull agree on every ray in t and face."""
+    t_other = int((kernel_out[0] != plain_out[0]).sum())
+    face_other = int((kernel_out[1] != plain_out[1]).sum())
+    log('pop_cull', kernel=kernel_name, set=set_name, leaf_fmt=leaf_fmt,
+        rays=int(kernel_out[0].numel()), t_differs=t_other,
+        face_differs=face_other)
+    if t_other or face_other:
+        raise RuntimeError(f'the pop cull of {kernel_name} changes {t_other} '
+                           f'distances and {face_other} faces on '
+                           f'{set_name}/{leaf_fmt}')
 
 
 def fraction_close(a, b, tol=5e-4):
@@ -1046,41 +1053,24 @@ def terrain_render(dev, card, packed, layout, launches, reset_launches,
     return state, counted['inst_trace']
 
 
-def terrain_sort(packed, layout, state):
-    """Phase 16: `trace` with and without the ray sort on the rays of the
-    waves=4 state, the measurement ROADMAP's per-wave sort waits on."""
-    from path_tracer_tpu_torch.ops.intersect import trace
-
-    o, d = state['origin'], state['direction']
-    ms = {order: cuda_ms(lambda: trace(packed, layout, o, d, sort_rays=flag),
-                         reps=3)
-          for order, flag in (('sorted', True), ('unsorted', False))}
-    log('terrain_trace_sort', rays=int(o.shape[1]), ms=ms,
-        sort_gain_ms=ms['unsorted'] - ms['sorted'])
-    return ms
-
-
 def terrain_kernel(packed, layout, state, inst_bytes, subset_size, flush):
-    """Phase 17: inst_trace on config 6's bounce rays (the waves=1 state
-    after its rounds, lane order as the render path feeds it, and sorted):
-    warm and cold ms, bit-equal to its plain version on a subset, and its
-    bound from the counted pops and triangles. The first scene whose
+    """Phase 16: inst_trace on config 6's bounce rays (the waves=1 state
+    after its rounds, in lane order as the render path feeds it): warm
+    and cold ms, bit-equal to its plain version on a subset, the pop cull
+    against the plain version without it on that subset, and its bound
+    from the counted pops and triangles. The first scene whose
     tables do not fit the 50 MB L2."""
     import torch
     from path_tracer_tpu_torch.core.constants import HIT_TIME_LIMIT
     from path_tracer_tpu_torch.ops import trace_inst
-    from path_tracer_tpu_torch.ops.intersect import (
-        intersect_analytic, make_hit, ray_sort_key)
+    from path_tracer_tpu_torch.ops.intersect import intersect_analytic, make_hit
     from path_tracer_tpu_torch.scene import bvh8
 
     o, d = state['origin'], state['direction']
     n = int(o.shape[1])
     t_in = intersect_analytic(packed, layout, o, d,
                               make_hit(n, HIT_TIME_LIMIT, o.device))['time']
-    perm = torch.argsort(ray_sort_key(packed, o, d), stable=True)
-    orders = {'lane': (o, d, t_in),
-              'sorted': (o[:, perm].contiguous(), d[:, perm].contiguous(),
-                         t_in[perm].contiguous())}
+    rays = (o, d, t_in)
     tables = (packed.inst_nodes, packed.inst_tris, packed.inst_rows)
 
     def kernel(*rays, **kw):
@@ -1088,35 +1078,26 @@ def terrain_kernel(packed, layout, state, inst_bytes, subset_size, flush):
 
     gen = torch.Generator().manual_seed(1)
     subset = torch.randperm(n, generator=gen)[:subset_size].to(o.device)
-    out = kernel(*orders['lane'])
-    *counted, counts = kernel(*orders['lane'], stats=True)
+    out = kernel(*rays)
+    *counted, counts = kernel(*rays, stats=True)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(out, counted)):
         raise RuntimeError('inst_trace on config 6: the launch with counters '
                            'gives other results')
-    sub = tuple(x[..., subset].contiguous() for x in orders['lane'])
+    sub = tuple(x[..., subset].contiguous() for x in rays)
+    sub_out = [x[..., subset] for x in out]
     max_err, agree = compare('inst_trace', 'terrain_bounce/' + bvh8.LEAF_FMT,
-                             [x[..., subset] for x in out],
-                             trace_inst.inst_trace_plain(
+                             sub_out, trace_inst.inst_trace_plain(
                                  *tables, *sub, layout.tlas_rows))
-    simple = kernel(*orders['lane'], variant='simple')
-    t_other = int((simple[0] != out[0]).sum())
-    face_other = int((simple[1] != out[1]).sum())
-    log('pop_cull', kernel='inst_trace', set='terrain_bounce',
-        leaf_fmt=bvh8.LEAF_FMT, rays=n, t_differs=t_other,
-        face_differs=face_other)
-    if t_other or face_other:
-        raise RuntimeError(f'the pop cull of inst_trace changes {t_other} '
-                           f'distances and {face_other} faces on config 6')
-    del simple
-    ms = {k: cuda_ms(lambda: kernel(*r)) for k, r in orders.items()}
-    ms_cold = {k: cuda_ms(lambda: kernel(*r), flush=flush)
-               for k, r in orders.items()}
+    pop_cull(sub_out, trace_inst.inst_trace_plain(
+        *tables, *sub, layout.tlas_rows, cull=False), 'inst_trace',
+        'terrain_bounce', bvh8.LEAF_FMT)
+    ms = cuda_ms(lambda: kernel(*rays))
+    ms_cold = cuda_ms(lambda: kernel(*rays), flush=flush)
     bound_ms, bound_by, nbytes, ops = kernel_bound(
         counts, n, inst_bytes, 5, OPS_TRIANGLE[bvh8.LEAF_FMT])
     per_ray = [c.float().mean().item() for c in counts]
-    rec = dict(ms=ms, ms_cold=ms_cold,
-               cold_over_warm={k: ms_cold[k] / ms[k] for k in ms},
+    rec = dict(ms=ms, ms_cold=ms_cold, cold_over_warm=ms_cold / ms,
                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
                agreement=agree)
     log('terrain_kernel', kernel='inst_trace', set='bounce', rays=n,
@@ -1126,7 +1107,7 @@ def terrain_kernel(packed, layout, state, inst_bytes, subset_size, flush):
         per_ray_leaf_rows=per_ray[2], per_ray_instance_entries=per_ray[3],
         per_ray_triangles=per_ray[4],
         hit_fraction=float((out[1] >= 0).float().mean()),
-        over_bound_lane=ms['lane'] / bound_ms, **rec)
+        over_bound=ms / bound_ms, **rec)
     return rec
 
 
@@ -1146,7 +1127,7 @@ def index_add_fold(xyz, count, lane, width, height):
 
 
 def resolve_determinism(state, width, height, repeats=8):
-    """Phase 18: resolve the waves=4 state `repeats` times; the frames must
+    """Phase 17: resolve the waves=4 state `repeats` times; the frames must
     be equal bit for bit (resolve adds a pixel's slots in slot order). The
     fold is timed against the index_add_ fold it replaced, on the reset
     layout and on the same slots shuffled (the sort and rank path, which
@@ -1217,7 +1198,7 @@ def terrain_golden(dev, repo, packed, layout, launches, reset_launches,
 
 
 def checkpoint_phase(dev, repo, width, height, rounds=4, every=2):
-    """Phase 19: the viking hall at width x height through
+    """Phase 18: the viking hall at width x height through
     render_resilient with one failure injected after the first
     checkpoint, against the same render uninterrupted (bit for bit); the
     checkpoint file loaded on the CPU; save and load ms and the file's
@@ -1310,7 +1291,7 @@ def read_png(path):
 
 
 def cli_phase(repo, width=192, height=108, rounds=8):
-    """Phase 20: `python -m path_tracer_tpu_torch render <the reference
+    """Phase 19: `python -m path_tracer_tpu_torch render <the reference
     schema's scene file>` and `... demo cornell`, each a subprocess on the
     card; each must exit 0 and write a PNG that is not black."""
     out_dir = os.path.join(repo, 'build', 'smoke')
@@ -1341,7 +1322,7 @@ def cli_phase(repo, width=192, height=108, rounds=8):
 
 
 def session_phase(dev, card, launches, reset_launches, width, height):
-    """Phase 21: a Session on the viking hall at width x height: restart
+    """Phase 20: a Session on the viking hall at width x height: restart
     and steady frame ms (inst_trace and hit_attributes once a round),
     with the default
     (specialized) layout and with the generic one, a material edit
@@ -1487,7 +1468,7 @@ def http_post(url, body):
 
 
 def viewer_phase(dev, card, launches, reset_launches, width, height):
-    """Phase 22: viewer/server.py over a Session on the viking hall at
+    """Phase 21: viewer/server.py over a Session on the viking hall at
     width x height, on the card, driven over http://127.0.0.1: the page,
     10 /frame.png polls (ms each, the median, inst_trace launches a poll,
     PNG bytes), one steady poll split into Session.frame, the copy to the
@@ -1614,7 +1595,7 @@ def viewer_phase(dev, card, launches, reset_launches, width, height):
 
 
 def cli_tools_phase(dev, repo):
-    """Phase 23: `spectrum 0.2 0.5 0.8 --png` and `bvhdump --demo viking
+    """Phase 22: `spectrum 0.2 0.5 0.8 --png` and `bvhdump --demo viking
     --depth 2` as subprocesses on the card (exit 0; bvhdump's statistics
     equal bvh_statistics of a compile on the card and of one on the CPU),
     and `view --demo cornell --port 0` started as a subprocess, one
@@ -1698,7 +1679,7 @@ def cli_tools_phase(dev, repo):
 
 def sharded_phase(dev, card, launches, reset_launches, width, height,
                   render_mrays, warmup=2, timed=6):
-    """Phase 24: parallel/render.py at world size 1 over NCCL on the card:
+    """Phase 23: parallel/render.py at world size 1 over NCCL on the card:
     the viking hall at width x height with waves=1 and waves=4, `warmup`
     + `timed` rounds through render_sharded_state, Mrays/s beside phase
     `render`'s, merge_accumulator ms, peak memory; the merged accumulator
@@ -1794,7 +1775,7 @@ def main():
     from path_tracer_tpu_torch.ops import (
         build, trace_inst, trace_packet, trace_wide)
     from path_tracer_tpu_torch.ops.intersect import (
-        SceneLayout, intersect_analytic, make_hit, ray_sort_key, trace)
+        SceneLayout, intersect_analytic, make_hit, trace)
     from path_tracer_tpu_torch.scene import bvh8
     from path_tracer_tpu_torch.scene import compile as scene_compile
     from path_tracer_tpu_torch.scene import model, procedural
@@ -1810,8 +1791,7 @@ def main():
         counted = profiling.counters()
         return {name: counted.get('kernel.' + name, 0)
                 for name in ('inst_trace', 'wide_trace5', 'wide_trace',
-                             'inst_trace_simple', 'wide_trace5_simple',
-                             'wide_trace_simple', 'hit_attributes')}
+                             'hit_attributes')}
 
     dev = torch.device(DEVICE)
     card = card_line()
@@ -1879,8 +1859,7 @@ def main():
     # -- 4. each kernel against its plain version -------------------------
     state = wavefront.reset(packed, config, seed=0)
     ray_sets = {'primary': (state['origin'].clone(), state['direction'].clone())}
-    wavefront.render_rounds(packed, layout, config, state, 0.05, rounds=2,
-                            sort_each_round=True)
+    wavefront.render_rounds(packed, layout, config, state, 0.05, rounds=2)
     ray_sets['bounce'] = (state['origin'].clone(), state['direction'].clone())
     del state
     n_rays = WIDTH * HEIGHT
@@ -1889,10 +1868,9 @@ def main():
 
     # The table sets of the three kernels: (kernel name, leaf format, the
     # tables the kernel reads, result rows written, operations a triangle,
-    # kernel, plain version). Each kernel takes variant='simple' (its
-    # baseline kernel) and each plain version cull=False (what the baseline
-    # computes).
-    def variants(fmt):
+    # kernel, plain version); the plain version with cull=False is the
+    # pop cull's reference.
+    def table_sets(fmt):
         pk, lay = packs[fmt]
         fl = flats[fmt][0]
         inst_tables = (pk.inst_nodes, pk.inst_tris, pk.inst_rows)
@@ -1917,22 +1895,16 @@ def main():
 
     flush_buffer = torch.empty(96 * 2**20, dtype=torch.float32, device=dev)
     flush = flush_buffer.zero_      # 384 MiB written: nothing stays in L2
-    # The render paths feed the kernels rays in lane order unless
-    # RenderConfig.sort_rays is set: the times of record are of that order.
-    path_order = 'sorted' if config.sort_rays else 'lane'
 
     records = {}        # kernel name -> fields of the "kernels" line
     for set_name, (o, d) in ray_sets.items():
         t_in = intersect_analytic(packed, layout, o, d,
                                   make_hit(n_rays, HIT_TIME_LIMIT, dev))['time']
-        perm = torch.argsort(ray_sort_key(packed, o, d), stable=True)
-        rays = (o[:, perm].contiguous(), d[:, perm].contiguous(),
-                t_in[perm].contiguous())
-        orders = {'sorted': rays, 'lane': (o, d, t_in)}
+        rays = (o, d, t_in)
         sub_rays = tuple(x[..., subset].contiguous() for x in rays)
         for fmt in LEAF_FMTS:
             for (name, leaf_fmt, tables, out_words, ops_tri, kernel,
-                 plain) in variants(fmt):
+                 plain) in table_sets(fmt):
                 # What is compared and timed is the launch the render paths
                 # make, without counters. The counters come from a second
                 # launch (another instantiation of the kernel's template),
@@ -1945,49 +1917,23 @@ def main():
                     raise RuntimeError(f'{name} on {label}: the launch with '
                                        'counters gives other results')
                 del counted
-                err, agree = compare(name, label,
-                                     [x[..., subset] for x in out],
-                                     plain(*sub_rays))
+                sub_out = [x[..., subset] for x in out]
+                err, agree = compare(name, label, sub_out, plain(*sub_rays))
                 rec = records.setdefault(name, dict(max_abs_err=0.0,
                                                     agreement=1.0))
                 main_fmt = fmt == bvh8.LEAF_FMT
-                # The baseline kernel: no pop cull, so held to the plain
-                # version without it.
-                simple_out = kernel(*rays, variant='simple')
-                torch.cuda.synchronize()
-                s_err, s_agree = compare(
-                    name + '_simple', label,
-                    [x[..., subset] for x in simple_out],
-                    plain(*sub_rays, cull=False))
-                err, agree = max(err, s_err), min(agree, s_agree)
-                # The pop cull keeps every hit: the kernel with it and the
-                # baseline without it agree on every ray, in every format.
-                t_other = int((simple_out[0] != out[0]).sum())
-                face_other = int((simple_out[1] != out[1]).sum())
-                log('pop_cull', kernel=name, set=set_name, leaf_fmt=leaf_fmt,
-                    rays=n_rays, t_differs=t_other, face_differs=face_other)
-                if t_other or face_other:
-                    raise RuntimeError(
-                        f'the pop cull of {name} changes {t_other} '
-                        f'distances and {face_other} faces on {label}')
-                del simple_out
-                # Times: every format on the sorted rays; the scene's own
-                # format in both orders, warm and cold, and the baseline
-                # kernel beside it.
-                timed = orders if main_fmt else {'sorted': rays}
-                ms = {k: cuda_ms(lambda: kernel(*r)) for k, r in timed.items()}
-                ms_cold = {k: cuda_ms(lambda: kernel(*r), flush=flush)
-                           for k, r in timed.items()}
-                simple_ms = {k: cuda_ms(lambda: kernel(*r, variant='simple'))
-                             for k, r in timed.items()}
+                pop_cull(sub_out, plain(*sub_rays, cull=False), name,
+                         set_name, leaf_fmt)
+                ms = cuda_ms(lambda: kernel(*rays))
+                ms_cold = cuda_ms(lambda: kernel(*rays), flush=flush)
                 n_hit = int((out[1] >= 0).sum())
                 bound_ms, bound_by, bound_bytes, ops = kernel_bound(
                     counts, n_rays, nbytes(*tables), out_words, ops_tri,
                     OPS_LERP_V3 * n_hit if name == 'wide_trace' else 0)
                 per_ray = [c.float().mean().item() for c in counts]
                 log('kernel', kernel=name, set=set_name, leaf_fmt=leaf_fmt,
-                    rays=n_rays, ms=ms, ms_cold=ms_cold, simple_ms=simple_ms,
-                    mrays_s=n_rays / ms['sorted'] / 1e3,
+                    rays=n_rays, ms=ms, ms_cold=ms_cold,
+                    mrays_s=n_rays / ms / 1e3,
                     bound_ms=bound_ms, bound_by=bound_by,
                     compulsory_bytes=bound_bytes, f32_ops=ops,
                     per_ray_interior_pops=per_ray[0],
@@ -1999,19 +1945,9 @@ def main():
                 rec['max_abs_err'] = max(rec['max_abs_err'], err)
                 rec['agreement'] = min(rec['agreement'], agree)
                 if main_fmt:
-                    # What each kernel measures of itself, and the two
-                    # kernels in turns on sorted and unsorted rays.
-                    for variant in ('tuned', 'simple'):
-                        log('kernel_anatomy', kernel=name, set=set_name,
-                            variant=variant, rays=n_rays,
-                            **kernel(*rays, variant=variant, anatomy=True)[-1])
-                    calls = {f'{variant}_{order}': (
-                        lambda r=r, variant=variant: kernel(*r, variant=variant))
-                        for order, r in orders.items()
-                        for variant in ('tuned', 'simple')}
-                    log('kernel_ab', kernel=name, set=set_name, rays=n_rays,
-                        ms=time_in_turns(calls, TIMING_REPS),
-                        ms_cold=time_in_turns(calls, TIMING_REPS, flush=flush))
+                    # What each kernel measures of itself.
+                    log('kernel_anatomy', kernel=name, set=set_name,
+                        rays=n_rays, **kernel(*rays, anatomy=True)[-1])
                 if set_name == 'bounce' and main_fmt:
                     # The main path's steady state: time the plain version
                     # on the same 2,073,600 rays, once, and check all of them.
@@ -2021,11 +1957,8 @@ def main():
                     torch.cuda.synchronize()
                     plain_ms = 1e3 * (time.perf_counter() - t0)
                     err, agree = compare(name, label + '/all', out, plain_full)
-                    rec.update(ms=ms[path_order], ms_cold=ms_cold[path_order],
-                               ms_sorted=ms['sorted'], ms_lane=ms['lane'],
-                               simple_ms=simple_ms[path_order],
-                               plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by,
+                    rec.update(ms=ms, ms_cold=ms_cold, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
                                max_abs_err=max(rec['max_abs_err'], err),
                                agreement=min(rec['agreement'], agree))
                     log('plain', kernel=name, set=set_name, leaf_fmt=leaf_fmt,
@@ -2093,27 +2026,14 @@ def main():
                 torch.isfinite(image).all()):
             raise RuntimeError(f'bad image {tuple(image.shape)}')
         round_ms = 1e3 * elapsed / TIMED_ROUNDS
-        # `trace` with and without the ray sort, on the rays of this state
-        # and on fresh primary rays: what decides RenderConfig.sort_rays.
-        fresh = wavefront.reset(pk, config, seed=1)
-        sort_ms = {}
-        for set_name, rs in (('bounce', state), ('primary', fresh)):
-            sort_ms[set_name] = {
-                order: cuda_ms(lambda: trace(pk, lay, rs['origin'],
-                                             rs['direction'], sort_rays=flag))
-                for order, flag in (('sorted', True), ('unsorted', False))}
-        del fresh
-        log('trace_sort', packet_mode=mode, rays=n_rays, ms=sort_ms,
-            unsorted_faster={k: v['unsorted'] < v['sorted']
-                             for k, v in sort_ms.items()},
-            default_sort_rays=config.sort_rays)
-        trace_ms = sort_ms['bounce']['sorted']
-        trace_unsorted_ms = sort_ms['bounce']['unsorted']
+        # `trace` alone on the rays of this state.
+        trace_ms = cuda_ms(lambda: trace(pk, lay, state['origin'],
+                                         state['direction']))
         mrays[mode] = n_rays * TIMED_ROUNDS / elapsed / 1e6
         log('render', packet_mode=mode, width=WIDTH, height=HEIGHT,
             rounds=TIMED_ROUNDS, seconds=elapsed,
             mrays_s=n_rays * TIMED_ROUNDS / elapsed / 1e6, round_ms=round_ms,
-            trace_ms=trace_ms, trace_unsorted_ms=trace_unsorted_ms,
+            trace_ms=trace_ms,
             samples=float(accum['count'].sum()), launches=counted,
             image_mean=float(image.mean()),
             peak_gib=torch.cuda.max_memory_allocated() / 2**30, card=card)
@@ -2229,7 +2149,7 @@ def main():
     torch.cuda.empty_cache()
     lap('hit_attributes')
 
-    # -- 14-18. bench config 6 at 1920x1080 with 1 and 4 waves ----------------
+    # -- 14-17. bench config 6 at 1920x1080 with 1 and 4 waves ----------------
     torch.cuda.empty_cache()
     terrain, terrain_layout, inst_bytes = terrain_compile(dev, WIDTH, HEIGHT)
     lap('terrain_compile')
@@ -2244,7 +2164,6 @@ def main():
     state, waves4 = terrain_render(dev, card, terrain, terrain_layout,
                                    launches, reset_launches, WIDTH, HEIGHT,
                                    waves=4)
-    terrain_sort(terrain, terrain_layout, state)
     resolve_determinism(state, WIDTH, HEIGHT)
     del state
     lap('terrain_waves4')
@@ -2253,36 +2172,34 @@ def main():
     torch.cuda.empty_cache()
     lap('terrain_golden')
     records['inst_trace']['config6'] = dict(
-        ms_lane=config6['ms']['lane'], ms_cold_lane=config6['ms_cold']['lane'],
-        ms_sorted=config6['ms']['sorted'],
-        ms_cold_sorted=config6['ms_cold']['sorted'],
+        ms=config6['ms'], ms_cold=config6['ms_cold'],
         bound_ms=config6['bound_ms'], bound_by=config6['bound_by'],
         max_abs_err=config6['max_abs_err'], launches_waves1=waves1,
         launches_waves4=waves4)
 
-    # -- 19. checkpoint and recovery at 1920x1080 -----------------------------
+    # -- 18. checkpoint and recovery at 1920x1080 -----------------------------
     checkpoint_phase(dev, repo, WIDTH, HEIGHT)
     lap('checkpoint')
 
-    # -- 20. the CLI in subprocesses on the card ------------------------------
+    # -- 19. the CLI in subprocesses on the card ------------------------------
     cli_phase(repo)
     lap('cli')
 
-    # -- 21. the interactive Session, preview and picking ---------------------
+    # -- 20. the interactive Session, preview and picking ---------------------
     records['inst_trace']['launches_session_frames'] = session_phase(
         dev, card, launches, reset_launches, SESSION_WIDTH, SESSION_HEIGHT)
     lap('session')
 
-    # -- 22. the HTTP viewer over a Session -----------------------------------
+    # -- 21. the HTTP viewer over a Session -----------------------------------
     records['inst_trace']['launches_viewer_polls'] = viewer_phase(
         dev, card, launches, reset_launches, SESSION_WIDTH, SESSION_HEIGHT)
     lap('viewer')
 
-    # -- 23. the CLI's spectrum, bvhdump and view ------------------------------
+    # -- 22. the CLI's spectrum, bvhdump and view ------------------------------
     cli_tools_phase(dev, repo)
     lap('cli_tools')
 
-    # -- 24. the sharded render at world size 1 over NCCL ----------------------
+    # -- 23. the sharded render at world size 1 over NCCL ----------------------
     records['inst_trace']['launches_sharded'] = sharded_phase(
         dev, card, launches, reset_launches, WIDTH, HEIGHT, mrays['inst'])
     lap('sharded')
@@ -2300,8 +2217,7 @@ def main():
         name=name, route='cuda',
         source='path_tracer_tpu_torch/csrc/' + sources[name][0],
         replaces=sources[name][1], library_ms=None, **records[name])
-        for name in sources],
-        'ray_order': path_order}))
+        for name in sources]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}))

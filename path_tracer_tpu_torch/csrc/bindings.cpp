@@ -19,34 +19,18 @@ extern "C" int inst_trace_launch(const float* nodes, const float* tris,
                                  float* t_out, int* face_out, float* fu_out,
                                  float* fv_out, int* inst_out, int* stats,
                                  int* warp_stats, void* stream);
-extern "C" int inst_trace_simple_launch(
-    const float* nodes, const float* tris, const float* inst_rows,
-    const float* origin, const float* direction, const float* t_in,
-    long long n, int tlas_rows, int leaf_fmt, float* t_out, int* face_out,
-    float* fu_out, float* fv_out, int* inst_out, int* stats, int* warp_stats,
-    void* stream);
 extern "C" int wide_trace5_launch(const float* nodes, const float* tris,
                                   const float* origin, const float* direction,
                                   const float* t_in, long long n, int leaf_fmt,
                                   float* t_out, int* face_out, float* fu_out,
                                   float* fv_out, int* stats, int* warp_stats,
                                   void* stream);
-extern "C" int wide_trace5_simple_launch(
-    const float* nodes, const float* tris, const float* origin,
-    const float* direction, const float* t_in, long long n, int leaf_fmt,
-    float* t_out, int* face_out, float* fu_out, float* fv_out, int* stats,
-    int* warp_stats, void* stream);
 extern "C" int wide_trace_launch(const float* nodes, const float* tris,
                                  const float* origin, const float* direction,
                                  const float* t_in, long long n, float* t_out,
                                  int* face_out, float* normal_out,
                                  float* uv_out, int* shape_out, int* stats,
                                  int* warp_stats, void* stream);
-extern "C" int wide_trace_simple_launch(
-    const float* nodes, const float* tris, const float* origin,
-    const float* direction, const float* t_in, long long n, float* t_out,
-    int* face_out, float* normal_out, float* uv_out, int* shape_out,
-    int* stats, int* warp_stats, void* stream);
 extern "C" int shape_trace_launch(
     const float* nodes, const float* rows, const float* planes, int n_planes,
     const float* origin, const float* direction, const float* t_in,
@@ -81,26 +65,6 @@ int inst_trace(const torch::Tensor& nodes, const torch::Tensor& tris,
       stats_ptr(warp_stats), reinterpret_cast<void*>(stream));
 }
 
-// Queues csrc/trace_inst_simple.cu; arguments as inst_trace.
-int inst_trace_simple(const torch::Tensor& nodes, const torch::Tensor& tris,
-                      const torch::Tensor& inst_rows,
-                      const torch::Tensor& origin,
-                      const torch::Tensor& direction,
-                      const torch::Tensor& t_in, int64_t tlas_rows,
-                      int64_t leaf_fmt, torch::Tensor& t, torch::Tensor& face,
-                      torch::Tensor& fu, torch::Tensor& fv,
-                      torch::Tensor& inst, torch::Tensor& stats,
-                      torch::Tensor& warp_stats, int64_t stream) {
-  return inst_trace_simple_launch(
-      nodes.data_ptr<float>(), tris.data_ptr<float>(),
-      inst_rows.data_ptr<float>(), origin.data_ptr<float>(),
-      direction.data_ptr<float>(), t_in.data_ptr<float>(), t_in.numel(),
-      static_cast<int>(tlas_rows), static_cast<int>(leaf_fmt),
-      t.data_ptr<float>(), face.data_ptr<int>(), fu.data_ptr<float>(),
-      fv.data_ptr<float>(), inst.data_ptr<int>(), stats_ptr(stats),
-      stats_ptr(warp_stats), reinterpret_cast<void*>(stream));
-}
-
 // Queues csrc/trace_packet.cu; arguments as inst_trace without the
 // instance rows.
 int wide_trace5(const torch::Tensor& nodes, const torch::Tensor& tris,
@@ -118,24 +82,6 @@ int wide_trace5(const torch::Tensor& nodes, const torch::Tensor& tris,
       reinterpret_cast<void*>(stream));
 }
 
-// Queues csrc/trace_packet_simple.cu; arguments as wide_trace5.
-int wide_trace5_simple(const torch::Tensor& nodes, const torch::Tensor& tris,
-                       const torch::Tensor& origin,
-                       const torch::Tensor& direction,
-                       const torch::Tensor& t_in, int64_t leaf_fmt,
-                       torch::Tensor& t, torch::Tensor& face,
-                       torch::Tensor& fu, torch::Tensor& fv,
-                       torch::Tensor& stats, torch::Tensor& warp_stats,
-                       int64_t stream) {
-  return wide_trace5_simple_launch(
-      nodes.data_ptr<float>(), tris.data_ptr<float>(),
-      origin.data_ptr<float>(), direction.data_ptr<float>(),
-      t_in.data_ptr<float>(), t_in.numel(), static_cast<int>(leaf_fmt),
-      t.data_ptr<float>(), face.data_ptr<int>(), fu.data_ptr<float>(),
-      fv.data_ptr<float>(), stats_ptr(stats), stats_ptr(warp_stats),
-      reinterpret_cast<void*>(stream));
-}
-
 // Queues csrc/trace_wide.cu; normal is (3, N), uv (2, N); counters as
 // inst_trace.
 int wide_trace(const torch::Tensor& nodes, const torch::Tensor& tris,
@@ -145,24 +91,6 @@ int wide_trace(const torch::Tensor& nodes, const torch::Tensor& tris,
                torch::Tensor& shape, torch::Tensor& stats,
                torch::Tensor& warp_stats, int64_t stream) {
   return wide_trace_launch(
-      nodes.data_ptr<float>(), tris.data_ptr<float>(),
-      origin.data_ptr<float>(), direction.data_ptr<float>(),
-      t_in.data_ptr<float>(), t_in.numel(), t.data_ptr<float>(),
-      face.data_ptr<int>(), normal.data_ptr<float>(), uv.data_ptr<float>(),
-      shape.data_ptr<int>(), stats_ptr(stats), stats_ptr(warp_stats),
-      reinterpret_cast<void*>(stream));
-}
-
-// Queues csrc/trace_wide_simple.cu; arguments as wide_trace.
-int wide_trace_simple(const torch::Tensor& nodes, const torch::Tensor& tris,
-                      const torch::Tensor& origin,
-                      const torch::Tensor& direction,
-                      const torch::Tensor& t_in, torch::Tensor& t,
-                      torch::Tensor& face, torch::Tensor& normal,
-                      torch::Tensor& uv, torch::Tensor& shape,
-                      torch::Tensor& stats, torch::Tensor& warp_stats,
-                      int64_t stream) {
-  return wide_trace_simple_launch(
       nodes.data_ptr<float>(), tris.data_ptr<float>(),
       origin.data_ptr<float>(), direction.data_ptr<float>(),
       t_in.data_ptr<float>(), t_in.numel(), t.data_ptr<float>(),
@@ -306,17 +234,10 @@ void openpbr_walk(const std::vector<torch::Tensor>& in,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("inst_trace", &inst_trace,
         "Instanced BVH8 closest-hit traversal (csrc/trace_inst.cu)");
-  m.def("inst_trace_simple", &inst_trace_simple,
-        "The baseline instanced traversal (csrc/trace_inst_simple.cu)");
   m.def("wide_trace5", &wide_trace5,
         "Flat BVH8 traversal, geometry-only leaves (csrc/trace_packet.cu)");
-  m.def("wide_trace5_simple", &wide_trace5_simple,
-        "The baseline flat traversal (csrc/trace_packet_simple.cu)");
   m.def("wide_trace", &wide_trace,
         "Flat BVH8 traversal, attributes in the leaves (csrc/trace_wide.cu)");
-  m.def("wide_trace_simple", &wide_trace_simple,
-        "The baseline flat traversal with attributes "
-        "(csrc/trace_wide_simple.cu)");
   m.def("shape_trace", &shape_trace,
         "Closest analytic-shape hit over a shape BVH (csrc/shape_trace.cu)");
   m.def("hit_attributes", &hit_attributes,

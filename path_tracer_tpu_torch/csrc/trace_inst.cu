@@ -20,10 +20,11 @@
 // traversal has no matrix product, so the tensor cores have no part in it.
 //
 // What binds it on the H100, as the kernels measured themselves
-// (kernel_anatomy of chip_smoke.py, tools/kernel_lab.py; 2,073,600 viking
-// hall rays, NVIDIA H100 80GB HBM3, 700 W; PERF.md has the numbers): not
-// the rows. A warp's active lanes fetch 1.3-2.4 distinct node rows in one
-// pass of the interior body even on unsorted bounce rays (3.4 at most),
+// (kernel_anatomy of chip_smoke.py, A/B builds of this source's variants;
+// 2,073,600 viking hall rays, NVIDIA H100 80GB HBM3, 700 W; PERF.md has
+// the numbers): not the rows. A warp's active lanes fetch 1.3-2.4 distinct
+// node rows in one pass of the interior body even on unsorted bounce rays
+// (3.4 at most),
 // the tables (a few MB) stay in L1 and L2, a launch after the L2 was
 // flushed takes no longer, and rows without the padding were no faster
 // than two runs differ. Nor the stack: no ray goes
@@ -48,8 +49,8 @@
 //     same, so the two still agree to the bit;
 //   * the triangle tests stand outside the loop that pops (two loops, the
 //     leaf loop not unrolled);
-//   * boxes and metas of a pop are fetched together (the simple kernel
-//     fetches each meta when it pushes), the push order of the ray's octant
+//   * boxes and metas of a pop are fetched together (not each meta when
+//     its child is pushed), the push order of the ray's octant
 //     after the slab test, only where a child is entered; the order is
 //     inverted into ranks, and each entered child goes to the stack slot
 //     its rank gives.

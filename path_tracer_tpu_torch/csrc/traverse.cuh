@@ -9,9 +9,8 @@
 // precomputed push ranks, a 384-byte leaf row) measured 1-3% (trace_packet.cu)
 // and 6-8% (trace_inst.cu) faster, under the 9% by which two runs differ:
 // a warp's lanes mostly fetch the same row, so the padding is never read
-// and costs nothing. `slab_hits` is the slab test of trace_wide.cu and the
-// *_simple kernels; trace_inst.cu and trace_packet.cu use `slab_entries`,
-// which also leaves entry distances and metas in registers.
+// and costs nothing. The three BVH8 kernels (trace_inst.cu,
+// trace_packet.cu, trace_wide.cu) test a node row with `slab_entries`.
 //
 // Every expression here is written in the order of its plain PyTorch
 // version (ops/trace_inst.py: safe_inv, leaf_tests; the slab test of the
@@ -48,42 +47,6 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 // Integers ride in float32 lanes, exact below 2^24: convert, never
 // reinterpret.
 __device__ __forceinline__ int exact_int(float f) { return __float2int_rn(f); }
-
-// Slab test of the eight child boxes in lanes 0..47 of a node row
-// (coordinate-major: lo_x[8] lo_y[8] lo_z[8] hi_x[8] hi_y[8] hi_z[8])
-// against one ray given as inv = 1/d and oinv = o/d. Bit ch of the result
-// is set when the ray enters child ch before t.
-__device__ __forceinline__ unsigned slab_hits(const float* __restrict__ row,
-                                              const float inv[3],
-                                              const float oinv[3], float t) {
-  float b[48];
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    const float4 x = ld4(row + 4 * j);
-    b[4 * j] = x.x;
-    b[4 * j + 1] = x.y;
-    b[4 * j + 2] = x.z;
-    b[4 * j + 3] = x.w;
-  }
-  unsigned hit = 0;
-#pragma unroll
-  for (int ch = 0; ch < 8; ++ch) {
-    const float tx0 = b[ch] * inv[0] - oinv[0];
-    const float ty0 = b[8 + ch] * inv[1] - oinv[1];
-    const float tz0 = b[16 + ch] * inv[2] - oinv[2];
-    const float tx1 = b[24 + ch] * inv[0] - oinv[0];
-    const float ty1 = b[32 + ch] * inv[1] - oinv[1];
-    const float tz1 = b[40 + ch] * inv[2] - oinv[2];
-    const float entry =
-        fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
-    const float exit_ =
-        fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-    const bool ok = (exit_ >= entry) && (exit_ > 0.0f) && (entry < t) &&
-                    (entry < PASS_LIMIT);
-    hit |= (unsigned)ok << ch;
-  }
-  return hit;
-}
 
 // Moller-Trumbore on p0 and the two edges. `slot_ok` is the count test
 // that guards the padded (all-zero) slots of a leaf row.
@@ -163,10 +126,12 @@ __device__ __forceinline__ int ranks_from_order(int order) {
 }
 
 // A node row in one round trip: the twelve box loads and the two meta loads
-// are independent, so they are all in flight before the first is used. Slab
-// test as `slab_hits`, expression for expression; besides the hit mask (bit
-// ch set when the ray enters the non-empty child ch before t) it leaves each
-// child's entry distance and meta in registers.
+// are independent, so they are all in flight before the first is used. The
+// eight child boxes sit in lanes 0..47, coordinate-major (lo_x[8] lo_y[8]
+// lo_z[8] hi_x[8] hi_y[8] hi_z[8]), and are tested against one ray given as
+// inv = 1/d and oinv = o/d. Besides the hit mask (bit ch set when the ray
+// enters the non-empty child ch before t) it leaves each child's entry
+// distance and meta in registers.
 __device__ __forceinline__ unsigned slab_entries(const float* __restrict__ row,
                                                  const float inv[3],
                                                  const float oinv[3], float t,

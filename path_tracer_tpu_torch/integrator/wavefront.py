@@ -41,32 +41,14 @@ class RenderConfig:
     camera_model: int = 0
     flags: int = RENDER_FLAG_ACCUMULATE | RENDER_FLAG_SAMPLE_JITTER
     rounds_per_call: int = 1
-    # Feed the mesh trace rays sorted by (direction octant, origin
-    # Morton cell, direction Morton) every round (ops.intersect.trace
-    # sort_rays); the state itself stays in lane order. The sort changes
-    # which rays share a warp, not the results. Off by default, unlike in
-    # the JAX package, whose 3072-ray packets need the coherence: at
-    # 1920x1080 on an H100 the kernels gain 0.1-0.15 ms from sorted bounce
-    # rays and nothing from sorted primary rays, and `trace` is 1.3-2.9 ms
-    # slower with the argsort and its row permutations than without, in
-    # both packet modes and on both kinds of rays (chip_smoke.py, phase
-    # `trace_sort`; PERF.md).
-    sort_rays: bool = False
     # Independent sample waves held in flight: the state carries
     # waves * width * height slots (slot = wave * n_pixels + lane, each
     # slot its own RNG stream of the same pixel grid) and every round
     # advances all of them; resolve folds the waves per pixel. The JAX
     # package also sorts each wave separately and interleaves them to
-    # stay under a TPU gather cliff; the port sorts all slots at once.
+    # stay under a TPU gather cliff; the port keeps its slots in lane
+    # order.
     waves: int = 1
-
-
-def wants_sort(config: RenderConfig, layout) -> bool:
-    """The per-round coherence sort runs when the configuration asks for
-    it and a mesh traversal kernel runs, in either packet mode;
-    analytic-only scenes have no traversal to feed."""
-    return bool(config.sort_rays and layout is not None
-                and layout.instance_slots)
 
 
 def reset(packed, config: RenderConfig, seed, slot=None):
@@ -94,7 +76,7 @@ def reset(packed, config: RenderConfig, seed, slot=None):
 
 
 def render_round(packed, layout: SceneLayout, config: RenderConfig,
-                 rs, termination_probability, sort_rays=False):
+                 rs, termination_probability):
     """One round, in place on the state dict `rs`: trace, scatter,
     accumulate the samples of terminated paths, respawn them.
 
@@ -103,8 +85,7 @@ def render_round(packed, layout: SceneLayout, config: RenderConfig,
     """
     with profiling.span('pt.round'):
         profiling.count('pt.rounds')
-        hit = trace(packed, layout, rs['origin'], rs['direction'],
-                    sort_rays=sort_rays)
+        hit = trace(packed, layout, rs['origin'], rs['direction'])
         rng = Rng(rs['rng_state'])
         path, origin, direction, alive = scatter(
             packed, rs['path'], rs['origin'], rs['direction'], hit, rng,
@@ -135,8 +116,7 @@ def render_round(packed, layout: SceneLayout, config: RenderConfig,
 
 
 def render_rounds(packed, layout: SceneLayout, config: RenderConfig,
-                  render_state, termination_probability, rounds=None,
-                  sort_each_round=False):
+                  render_state, termination_probability, rounds=None):
     """Run `rounds` rounds on `render_state` (updated in place and
     returned). One round advances every path by one vertex; terminated
     paths deposit their sample and respawn at their pixel
@@ -144,7 +124,7 @@ def render_rounds(packed, layout: SceneLayout, config: RenderConfig,
     rounds = config.rounds_per_call if rounds is None else rounds
     for _ in range(int(rounds)):
         render_round(packed, layout, config, render_state,
-                     termination_probability, sort_rays=sort_each_round)
+                     termination_probability)
     return render_state
 
 
@@ -158,9 +138,7 @@ def render(packed, config: RenderConfig, spp_rounds, seed=0,
     layout = layout or SceneLayout.from_packed(packed)
     if state is None:
         state = reset(packed, config, seed)
-    sorted_ = wants_sort(config, layout)
     with log.timer('render.dispatch', rounds=int(spp_rounds),
-                   lanes=config.width * config.height, sorted=sorted_):
+                   lanes=config.width * config.height):
         return render_rounds(packed, layout, config, state,
-                             termination_probability, int(spp_rounds),
-                             sort_each_round=sorted_)
+                             termination_probability, int(spp_rounds))

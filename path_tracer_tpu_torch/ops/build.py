@@ -31,24 +31,20 @@ NVCC_FLAGS = ['-gencode=arch=compute_90a,code=sm_90a', '-O3', '-fmad=false']
 NAME = 'path_tracer_tpu_torch_kernels'
 
 _LOCK = threading.Lock()
-_EXTS = {}
+_EXT = None
 
 
-def load(csrc=CSRC, name=NAME, build_dir=BUILD_DIR):
-    """The extension module holding every kernel's binding, built on
-    first use. The defaults give the module the wrappers call; a copy of
-    the sources in another directory builds under another `name` into
-    another `build_dir` (tools/kernel_lab.py times such variants)."""
+def load():
+    """The extension module holding every kernel's binding: the sources
+    of `CSRC` built as `NAME` into `BUILD_DIR` on first use."""
+    global _EXT
     with _LOCK:
-        ext = _EXTS.get(name)
-    if ext is None:
-        from torch.utils import cpp_extension
-        os.makedirs(build_dir, exist_ok=True)
-        sources = sorted(os.path.join(csrc, f) for f in os.listdir(csrc)
-                         if f.endswith(('.cu', '.cpp')))
-        ext = cpp_extension.load(
-            name, sources, extra_cflags=['-O3'], extra_cuda_cflags=NVCC_FLAGS,
-            build_directory=build_dir)
-        with _LOCK:
-            ext = _EXTS.setdefault(name, ext)
-    return ext
+        if _EXT is None:
+            from torch.utils import cpp_extension
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            sources = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                             if f.endswith(('.cu', '.cpp')))
+            _EXT = cpp_extension.load(
+                NAME, sources, extra_cflags=['-O3'],
+                extra_cuda_cflags=NVCC_FLAGS, build_directory=BUILD_DIR)
+    return _EXT

@@ -67,35 +67,6 @@ CULL_SLACK = trace_inst.CULL_SLACK
 STACK_DEPTH = 48     # per-ray stack of the portable BVH2 traversal
 
 
-def ray_sort_key(packed, origin, direction):
-    """Coherence key: 3-bit direction octant (major), 15-bit Morton cell
-    of the origin within the scene bounds, then a 12-bit direction
-    Morton as the low-order tie-break (the JAX package's key, bit for
-    bit). On the GPU it groups rays that pop the same BVH rows into the
-    same warps."""
-    lo = packed.scene_bounds[:, 0]
-    hi = packed.scene_bounds[:, 1]
-    span = torch.clamp(hi - lo, min=1e-6)
-    q = torch.clamp((origin - lo[:, None]) / span[:, None], 0.0, 1.0)
-    cells = (q * 31.0).to(torch.int32)
-    morton = torch.zeros_like(cells[0])
-    for b in range(5):
-        morton = (morton
-                  | (((cells[0] >> b) & 1) << (3 * b + 2))
-                  | (((cells[1] >> b) & 1) << (3 * b + 1))
-                  | (((cells[2] >> b) & 1) << (3 * b)))
-    neg = (direction < 0).to(torch.int32)
-    octant = (neg[0] << 2) | (neg[1] << 1) | neg[2]
-    dcells = torch.clamp((direction + 1.0) * (0.5 * 15.0), 0.0, 15.0).to(torch.int32)
-    dmorton = torch.zeros_like(dcells[0])
-    for b in range(4):
-        dmorton = (dmorton
-                   | (((dcells[0] >> b) & 1) << (3 * b + 2))
-                   | (((dcells[1] >> b) & 1) << (3 * b + 1))
-                   | (((dcells[2] >> b) & 1) << (3 * b)))
-    return (((octant << 15) | morton) << 12) | dmorton
-
-
 @dataclass(frozen=True)
 class SceneLayout:
     """Static scene structure, built on the host from the scene document
@@ -834,22 +805,8 @@ def resolve_attributes_plain(packed, layout: SceneLayout, origin, direction,
     return resolve_hit_attributes(packed, layout, origin, direction, hit)
 
 
-def _permute(perm, *rows):
-    return [r[..., perm] for r in rows]
-
-
-def _unpermute(perm, *rows):
-    """Inverse of _permute by a scatter: out[..., perm] = row."""
-    outs = []
-    for r in rows:
-        out = torch.empty_like(r)
-        out[..., perm] = r
-        outs.append(out)
-    return outs
-
-
 def trace(packed, layout: SceneLayout, origin, direction,
-          duration=HIT_TIME_LIMIT, use_packet=None, sort_rays=False):
+          duration=HIT_TIME_LIMIT, use_packet=None):
     """Full trace: intersect every shape, resolve hit attributes.
 
     origin/direction: (3, N). Returns the resolved hit SoA dict; lanes
@@ -859,11 +816,9 @@ def trace(packed, layout: SceneLayout, origin, direction,
     the layout's packet mode in one call for all instances
     (ops.trace_inst.inst_trace in 'inst' mode, ops.trace_packet.
     wide_trace5 in 'flat' mode); there is no table budget on the card
-    that could rule the kernel out. sort_rays=True feeds it rays in
-    ray_sort_key order (a stable argsort) and scatters its outputs back
-    to lane order: the results do not change, only which rays share a
-    warp. use_packet False: the portable BVH2 traversal, one instance
-    slot after the other.
+    that could rule the kernel out; it takes the rays in lane order.
+    use_packet False: the portable BVH2 traversal, one instance slot
+    after the other.
     """
     with profiling.span('pt.trace'):
         n = origin.shape[1]
@@ -872,25 +827,16 @@ def trace(packed, layout: SceneLayout, origin, direction,
             hit = intersect_analytic(packed, layout, origin, direction, hit)
 
         if layout.instance_slots and use_packet in (None, True):
-            k_origin, k_direction, k_tin = origin, direction, hit['time']
-            if sort_rays:
-                perm = torch.argsort(ray_sort_key(packed, origin, direction),
-                                     stable=True)
-                k_origin, k_direction, k_tin = _permute(perm, origin, direction,
-                                                        hit['time'])
-                k_origin, k_direction = k_origin.contiguous(), k_direction.contiguous()
-            k_tin = k_tin.contiguous()
             with profiling.span('pt.trace.kernel'):
                 if layout.packet_mode == 'inst':
                     out = trace_inst.inst_trace(
                         packed.inst_nodes, packed.inst_tris, packed.inst_rows,
-                        k_origin, k_direction, k_tin, tlas_rows=layout.tlas_rows)
+                        origin, direction, hit['time'],
+                        tlas_rows=layout.tlas_rows)
                 else:
                     out = trace_packet.wide_trace5(
-                        packed.wide_nodes_g, packed.wide_tris_g, k_origin,
-                        k_direction, k_tin)
-            if sort_rays:
-                out = _unpermute(perm, *out)
+                        packed.wide_nodes_g, packed.wide_tris_g, origin,
+                        direction, hit['time'])
             with profiling.span('pt.trace.attributes'):
                 return resolve_attributes(packed, layout, origin, direction,
                                           hit, out)

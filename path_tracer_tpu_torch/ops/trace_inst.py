@@ -13,18 +13,15 @@ rays against the tables that scene/compile.py builds in 'inst' mode:
 
 and returns (t, face, fu, fv, inst), face = (leaf_row + r) * 8 + k and
 inst = -1 on a miss. On a CUDA tensor it launches the hand-written
-kernel csrc/trace_inst.cu, or, for variant='simple', the first kernel of
-the port, csrc/trace_inst_simple.cu, which is kept as the baseline to
-measure against; on a CPU tensor it runs `inst_trace_plain`, the same
-per-ray traversal written in PyTorch. There is no fallback from one to
-the other.
+kernel csrc/trace_inst.cu; on a CPU tensor it runs `inst_trace_plain`,
+the same per-ray traversal written in PyTorch. There is no fallback from
+one to the other.
 
 A stack entry carries the distance at which the ray enters the node's
 box, and a pop whose entry lies beyond the ray's t by more than the slab
 test's rounding (`CULL_SLACK`) is dropped without fetching its row (the
-pop cull). Kernel and plain version cull
-alike; the simple kernel does not cull, and equals the plain version
-with cull=False.
+pop cull). Kernel and plain version cull alike; the plain version with
+cull=False is the cull-free reference the tests hold the cull to.
 """
 
 from __future__ import annotations
@@ -45,7 +42,6 @@ LEAF_ROWS = bvh8.LEAF_MAX // 8
 CULL_SLACK = 1.0 + 2.0 ** -23
 LEAF_FMTS = {'mt': 0, 'bary': 1, 'woop': 2}
 
-VARIANTS = ('tuned', 'simple')
 WARP_STATS = 12          # csrc/traverse.cuh
 
 def safe_inv(d):
@@ -318,7 +314,7 @@ def anatomy_record(per_ray, warps, rows):
 
 
 def _inst_trace_cuda(nodes, tris, inst_rows, origin, direction, t_in,
-                     tlas_rows, leaf_fmt, stats, variant, anatomy):
+                     tlas_rows, leaf_fmt, stats, anatomy):
     dev = origin.device
     n = origin.shape[-1]
     for name, x in (('nodes', nodes), ('tris', tris), ('inst_rows', inst_rows)):
@@ -328,8 +324,6 @@ def _inst_trace_cuda(nodes, tris, inst_rows, origin, direction, t_in,
     check_tensor('t_in', t_in, dev, (n,))
     if leaf_fmt not in LEAF_FMTS:
         raise NotImplementedError(f'leaf format {leaf_fmt!r}')
-    if variant not in VARIANTS:
-        raise ValueError(f'unknown kernel variant {variant!r}')
     t = torch.empty(n, dtype=torch.float32, device=dev)
     face = torch.empty(n, dtype=torch.int32, device=dev)
     fu = torch.empty(n, dtype=torch.float32, device=dev)
@@ -337,15 +331,13 @@ def _inst_trace_cuda(nodes, tris, inst_rows, origin, direction, t_in,
     inst = torch.empty(n, dtype=torch.int32, device=dev)
     per_ray, warps = stats_buffers(stats or anatomy, 7, n, dev)
     from .build import load
-    ext = load()
-    kernel = ext.inst_trace_simple if variant == 'simple' else ext.inst_trace
-    err = kernel(nodes, tris, inst_rows, origin, direction, t_in,
-                 int(tlas_rows), LEAF_FMTS[leaf_fmt], t, face, fu, fv, inst,
-                 per_ray, warps, torch.cuda.current_stream(dev).cuda_stream)
+    err = load().inst_trace(nodes, tris, inst_rows, origin, direction, t_in,
+                            int(tlas_rows), LEAF_FMTS[leaf_fmt], t, face, fu,
+                            fv, inst, per_ray, warps,
+                            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'inst_trace kernel launch failed: cudaError {err}')
-    profiling.count('kernel.inst_trace_simple' if variant == 'simple'
-                    else 'kernel.inst_trace')
+    profiling.count('kernel.inst_trace')
     out = (t, face, fu, fv, inst)
     if stats:
         out += (per_ray[:5],)
@@ -355,7 +347,7 @@ def _inst_trace_cuda(nodes, tris, inst_rows, origin, direction, t_in,
 
 
 def inst_trace(nodes, tris, inst_rows, origin, direction, t_in, tlas_rows,
-               leaf_fmt=None, stats=False, variant='tuned', anatomy=False):
+               leaf_fmt=None, stats=False, anatomy=False):
     """Trace world rays (origin/direction (3, N), t_in (N,)) against the
     two-level tables; tlas_rows is the count of TLAS rows at the head
     of `nodes`.
@@ -363,26 +355,20 @@ def inst_trace(nodes, tris, inst_rows, origin, direction, t_in, tlas_rows,
     Returns (t, face, fu, fv, inst), plus a (5, N) int32 tensor of
     per-ray interior pops, leaf pops, leaf rows tested, instance entries
     and triangles in the tested rows when `stats`.
-    CUDA tensors launch a CUDA kernel: csrc/trace_inst.cu (counted in
-    utils/profiling.py as `kernel.inst_trace`), or
-    csrc/trace_inst_simple.cu (`kernel.inst_trace_simple`) for
-    variant='simple'. `anatomy` appends the dict of `anatomy_record`:
-    what the kernel measured of itself in that launch. CPU tensors run `inst_trace_plain`, with the pop cull unless
-    variant='simple'.
+    CUDA tensors launch the CUDA kernel csrc/trace_inst.cu (counted in
+    utils/profiling.py as `kernel.inst_trace`). `anatomy` appends the
+    dict of `anatomy_record`: what the kernel measured of itself in that
+    launch. CPU tensors run `inst_trace_plain` with the pop cull.
     """
     leaf_fmt = bvh8.LEAF_FMT if leaf_fmt is None else leaf_fmt
     if origin.device.type == 'cuda':
         return _inst_trace_cuda(nodes, tris, inst_rows, origin, direction,
-                                t_in, tlas_rows, leaf_fmt, stats, variant,
-                                anatomy)
+                                t_in, tlas_rows, leaf_fmt, stats, anatomy)
     if origin.device.type == 'cpu':
         if anatomy:
             raise ValueError('only the CUDA kernels measure their anatomy')
-        if variant not in VARIANTS:
-            raise ValueError(f'unknown kernel variant {variant!r}')
         return inst_trace_plain(nodes, tris, inst_rows, origin, direction,
-                                t_in, tlas_rows, leaf_fmt, stats,
-                                cull=variant != 'simple')
+                                t_in, tlas_rows, leaf_fmt, stats)
     raise ValueError(f'inst_trace: unsupported device {origin.device}')
 
 

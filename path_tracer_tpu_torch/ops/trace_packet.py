@@ -15,17 +15,16 @@ and returns (t, face, fu, fv), face = (leaf_row + r) * 8 + k, or -1
 where nothing closer than t_in was hit. `resolve_wide_attributes` lerps
 normals and uvs of the winners from the (slots, 16) side table. On a
 CUDA tensor `wide_trace5` launches the hand-written kernel
-csrc/trace_packet.cu, or, for variant='simple', the first kernel of the
-port, csrc/trace_packet_simple.cu, which is kept as the baseline to
-measure against; on a CPU tensor it runs `wide_trace5_plain`, the same per-ray traversal written
-in PyTorch. There is no fallback from one to the other.
+csrc/trace_packet.cu; on a CPU tensor it runs `wide_trace5_plain`, the
+same per-ray traversal written in PyTorch. There is no fallback from one
+to the other.
 
 A stack entry carries the distance at which the ray enters the node's
 box, and a pop whose entry lies beyond the ray's t by more than the slab
 test's rounding (trace_inst.CULL_SLACK) is dropped without fetching its
 row (the pop cull). Kernel and plain version cull
-alike (so do `wide_trace` and its plain version); the simple kernel does
-not cull, and equals the plain version with cull=False.
+alike (so do `wide_trace` and its plain version); the plain version with
+cull=False is the cull-free reference the tests hold the cull to.
 
 Where the JAX kernel flips a node's push order by the sign of a 1024-ray
 packet's summed direction along the node's axis, kernel and plain
@@ -42,7 +41,7 @@ import torch
 from ..scene import bvh8
 from ..utils import profiling
 from .trace_inst import (
-    CULL_SLACK, LEAF_FMTS, VARIANTS, anatomy_record, check_tensor, leaf_tests,
+    CULL_SLACK, LEAF_FMTS, anatomy_record, check_tensor, leaf_tests,
     safe_inv, stats_buffers)
 
 STACK_DEPTH = 96
@@ -185,27 +184,22 @@ def check_rays(nodes, tris, origin, direction, t_in):
 
 
 def _wide_trace5_cuda(nodes, tris_g, origin, direction, t_in, leaf_fmt, stats,
-                      variant, anatomy):
+                      anatomy):
     dev, n = check_rays(nodes, tris_g, origin, direction, t_in)
     if leaf_fmt not in LEAF_FMTS:
         raise NotImplementedError(f'leaf format {leaf_fmt!r}')
-    if variant not in VARIANTS:
-        raise ValueError(f'unknown kernel variant {variant!r}')
     t = torch.empty(n, dtype=torch.float32, device=dev)
     face = torch.empty(n, dtype=torch.int32, device=dev)
     fu = torch.empty(n, dtype=torch.float32, device=dev)
     fv = torch.empty(n, dtype=torch.float32, device=dev)
     per_ray, warps = stats_buffers(stats or anatomy, 6, n, dev)
     from .build import load
-    ext = load()
-    kernel = ext.wide_trace5_simple if variant == 'simple' else ext.wide_trace5
-    err = kernel(nodes, tris_g, origin, direction, t_in, LEAF_FMTS[leaf_fmt],
-                 t, face, fu, fv, per_ray, warps,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    err = load().wide_trace5(nodes, tris_g, origin, direction, t_in,
+                             LEAF_FMTS[leaf_fmt], t, face, fu, fv, per_ray,
+                             warps, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'wide_trace5 kernel launch failed: cudaError {err}')
-    profiling.count('kernel.wide_trace5_simple' if variant == 'simple'
-                    else 'kernel.wide_trace5')
+    profiling.count('kernel.wide_trace5')
     out = (t, face, fu, fv)
     if stats:
         out += (per_ray[:4],)
@@ -215,7 +209,7 @@ def _wide_trace5_cuda(nodes, tris_g, origin, direction, t_in, leaf_fmt, stats,
 
 
 def wide_trace5(nodes, tris_g, origin, direction, t_in, leaf_fmt=None,
-                stats=False, variant='tuned', anatomy=False):
+                stats=False, anatomy=False):
     """Trace world rays (origin/direction (3, N), t_in (N,) reach)
     against the flattened world-space BVH8.
 
@@ -225,24 +219,20 @@ def wide_trace5(nodes, tris_g, origin, direction, t_in, leaf_fmt=None,
     interior pops, leaf pops, leaf rows tested and triangles in those
     rows; these are each ray's own counts, not the JAX kernel's
     per-grid-step packet counts.
-    CUDA tensors launch a CUDA kernel: csrc/trace_packet.cu (counted in
-    utils/profiling.py as `kernel.wide_trace5`), or
-    csrc/trace_packet_simple.cu (`kernel.wide_trace5_simple`) for
-    variant='simple'. `anatomy` appends the dict of
-    `trace_inst.anatomy_record`. CPU tensors run
-    `wide_trace5_plain`, with the pop cull unless variant='simple'.
+    CUDA tensors launch the CUDA kernel csrc/trace_packet.cu (counted in
+    utils/profiling.py as `kernel.wide_trace5`). `anatomy` appends the
+    dict of `trace_inst.anatomy_record`. CPU tensors run
+    `wide_trace5_plain` with the pop cull.
     """
     leaf_fmt = bvh8.LEAF_FMT if leaf_fmt is None else leaf_fmt
     if origin.device.type == 'cuda':
         return _wide_trace5_cuda(nodes, tris_g, origin, direction, t_in,
-                                 leaf_fmt, stats, variant, anatomy)
+                                 leaf_fmt, stats, anatomy)
     if origin.device.type == 'cpu':
         if anatomy:
             raise ValueError('only the CUDA kernels measure their anatomy')
-        if variant not in VARIANTS:
-            raise ValueError(f'unknown kernel variant {variant!r}')
         return wide_trace5_plain(nodes, tris_g, origin, direction, t_in,
-                                 leaf_fmt, stats, cull=variant != 'simple')
+                                 leaf_fmt, stats)
     raise ValueError(f'wide_trace5: unsupported device {origin.device}')
 
 

@@ -17,13 +17,10 @@ face = (tri_row + r) * 4 + k; on a miss face is -1 and normal, uv and
 shape are 0 (shape is NOT -1: callers mask by face >= 0).
 
 On a CUDA tensor `wide_trace` launches the hand-written kernel
-csrc/trace_wide.cu, or, for variant='simple', the port's first kernel for
-this function, csrc/trace_wide_simple.cu, kept as the baseline to measure
-against; on a CPU tensor it runs `wide_trace_plain`. There is no fallback
-from one to the other. Push order, the pop cull and the per-ray counters
-are those of ops/trace_packet.py: kernel and plain version cull alike,
-the simple kernel does not, and equals the plain version with
-cull=False.
+csrc/trace_wide.cu; on a CPU tensor it runs `wide_trace_plain`. There is
+no fallback from one to the other. Push order, the pop cull and the
+per-ray counters are those of ops/trace_packet.py: kernel and plain
+version cull alike.
 """
 
 from __future__ import annotations
@@ -32,7 +29,7 @@ import torch
 
 from ..scene import bvh8
 from ..utils import profiling
-from .trace_inst import VARIANTS, anatomy_record, stats_buffers
+from .trace_inst import anatomy_record, stats_buffers
 from .trace_packet import STACK_DEPTH, check_rays, traverse_plain
 
 LEAF_ROWS = bvh8.LEAF_MAX // bvh8.TRIS_PER_ROW
@@ -104,10 +101,8 @@ def wide_trace_plain(wide_nodes, wide_tris, origin, direction, t_in,
 
 
 def _wide_trace_cuda(wide_nodes, wide_tris, origin, direction, t_in, stats,
-                     variant, anatomy):
+                     anatomy):
     dev, n = check_rays(wide_nodes, wide_tris, origin, direction, t_in)
-    if variant not in VARIANTS:
-        raise ValueError(f'unknown kernel variant {variant!r}')
     t = torch.empty(n, dtype=torch.float32, device=dev)
     face = torch.empty(n, dtype=torch.int32, device=dev)
     normal = torch.empty((3, n), dtype=torch.float32, device=dev)
@@ -115,15 +110,12 @@ def _wide_trace_cuda(wide_nodes, wide_tris, origin, direction, t_in, stats,
     shape = torch.empty(n, dtype=torch.int32, device=dev)
     per_ray, warps = stats_buffers(stats or anatomy, 6, n, dev)
     from .build import load
-    ext = load()
-    kernel = ext.wide_trace_simple if variant == 'simple' else ext.wide_trace
-    err = kernel(wide_nodes, wide_tris, origin, direction, t_in, t, face,
-                 normal, uv, shape, per_ray, warps,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    err = load().wide_trace(wide_nodes, wide_tris, origin, direction, t_in, t,
+                            face, normal, uv, shape, per_ray, warps,
+                            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'wide_trace kernel launch failed: cudaError {err}')
-    profiling.count('kernel.wide_trace_simple' if variant == 'simple'
-                    else 'kernel.wide_trace')
+    profiling.count('kernel.wide_trace')
     out = (t, face, normal, uv, shape)
     if stats:
         out += (per_ray[:4],)
@@ -133,7 +125,7 @@ def _wide_trace_cuda(wide_nodes, wide_tris, origin, direction, t_in, stats,
 
 
 def wide_trace(wide_nodes, wide_tris, origin, direction, t_in, stats=False,
-               variant='tuned', anatomy=False):
+               anatomy=False):
     """Trace world rays (origin/direction (3, N), t_in (N,) reach)
     against the flattened world-space BVH8 with in-row attributes.
 
@@ -142,21 +134,17 @@ def wide_trace(wide_nodes, wide_tris, origin, direction, t_in, stats=False,
     leaf pops, leaf rows tested and triangles in those rows; these are
     each ray's own counts, not the JAX kernel's per-grid-step packet
     counts.
-    CUDA tensors launch a CUDA kernel: csrc/trace_wide.cu (counted in
-    utils/profiling.py as `kernel.wide_trace`), or
-    csrc/trace_wide_simple.cu (`kernel.wide_trace_simple`) for
-    variant='simple'. `anatomy` appends the dict
-    of `trace_inst.anatomy_record`. CPU tensors run `wide_trace_plain`,
-    with the pop cull unless variant='simple'.
+    CUDA tensors launch the CUDA kernel csrc/trace_wide.cu (counted in
+    utils/profiling.py as `kernel.wide_trace`). `anatomy` appends the
+    dict of `trace_inst.anatomy_record`. CPU tensors run
+    `wide_trace_plain` with the pop cull.
     """
     if origin.device.type == 'cuda':
         return _wide_trace_cuda(wide_nodes, wide_tris, origin, direction,
-                                t_in, stats, variant, anatomy)
+                                t_in, stats, anatomy)
     if origin.device.type == 'cpu':
         if anatomy:
             raise ValueError('only the CUDA kernels measure their anatomy')
-        if variant not in VARIANTS:
-            raise ValueError(f'unknown kernel variant {variant!r}')
         return wide_trace_plain(wide_nodes, wide_tris, origin, direction,
-                                t_in, stats, cull=variant != 'simple')
+                                t_in, stats)
     raise ValueError(f'wide_trace: unsupported device {origin.device}')

@@ -35,8 +35,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from ..integrator.wavefront import (
-    RenderConfig, render_rounds, reset, wants_sort)
+from ..integrator.wavefront import RenderConfig, render_rounds, reset
 from ..ops.intersect import SceneLayout
 
 BACKENDS = {'cuda': 'nccl', 'cpu': 'gloo'}
@@ -133,13 +132,11 @@ def reset_sharded(packed, config: RenderConfig, mesh: Mesh, seed=0):
 def render_sharded_state(packed, config: RenderConfig, rounds, mesh: Mesh,
                          state, termination_probability=0.05, layout=None):
     """Advance this rank's state by `rounds` wavefront rounds, in place;
-    no collective. The per-round ray sort, when on, sorts the rank's own
-    rays (trace un-permutes its results, so the state is unchanged)."""
+    no collective."""
     _check_device(packed, mesh)
     layout = layout or SceneLayout.from_packed(packed)
     return render_rounds(packed, layout, config, state,
-                         termination_probability, rounds,
-                         sort_each_round=wants_sort(config, layout))
+                         termination_probability, rounds)
 
 
 def merge_accumulator(mesh: Mesh, state):

@@ -10,9 +10,8 @@ builds `wide_trace`'s tables with one triangle in two slots of a leaf;
 `unit_directions` and `spectrum_beta`) for the JAX comparison and for the
 walk kernel's tests.
 
-The tests here launch the hand-written CUDA kernels (the ones the render
-paths run and the baseline `simple` ones) and compare them with their
-plain PyTorch versions on the card. They carry the `cuda`
+The tests here launch the hand-written CUDA kernels and compare them
+with their plain PyTorch versions on the card. They carry the `cuda`
 marker and skip on a machine without one; on the GPU machine run them
 with `python -m pytest tests/test_torch_cuda.py -m cuda`.
 """
@@ -502,8 +501,7 @@ def test_wide_trace_kernel_matches_plain_version(cuda):
 
 
 @pytest.mark.parametrize('spread', [1, 8])
-@pytest.mark.parametrize('variant', ['tuned', 'simple'])
-def test_wide_trace_tie_goes_to_the_lower_slot(cuda, variant, spread):
+def test_wide_trace_tie_goes_to_the_lower_slot(cuda, spread):
     """On a leaf that holds one triangle in two slots, the kernel returns
     the lower slot, as the plain version's sequential loop does, and
     equals the plain version to the bit on every output, with and without
@@ -523,11 +521,10 @@ def test_wide_trace_tie_goes_to_the_lower_slot(cuda, variant, spread):
     origin[:, ::spread], direction[:, ::spread] = o, d
     nodes, tris, o, d, t_in = (torch.from_numpy(x).to(cuda) for x in (
         nodes, tris, origin, direction, np.full(n, 1e5, np.float32)))
-    got = trace_wide.wide_trace(nodes, tris, o, d, t_in, variant=variant)
+    got = trace_wide.wide_trace(nodes, tris, o, d, t_in)
     *counted, _, rec = trace_wide.wide_trace(
-        nodes, tris, o, d, t_in, variant=variant, stats=True, anatomy=True)
-    plain = trace_wide.wide_trace_plain(nodes, tris, o, d, t_in,
-                                        cull=variant == 'tuned')
+        nodes, tris, o, d, t_in, stats=True, anatomy=True)
+    plain = trace_wide.wide_trace_plain(nodes, tris, o, d, t_in)
     for k, c, p in zip(got, counted, plain):
         assert torch.equal(k, p) and torch.equal(c, p)
     face = got[1].cpu().numpy()
@@ -535,13 +532,13 @@ def test_wide_trace_tie_goes_to_the_lower_slot(cuda, variant, spread):
         assert (face == lo).sum() > 1000 and not (face == hi).any()
     if spread > 1:
         assert (face.reshape(-1, spread)[:, 1:] < 0).all()
-        assert (rec['simt_leaf'] > 4 / 32) == (variant == 'tuned'), rec
+        assert rec['simt_leaf'] > 4 / 32, rec
 
 
-def _redesigned_kernel(kernel, leaf_fmt, rng, cuda):
-    """(kernel wrapper, plain version) of one of the three redesigned
-    kernels on random geometry, both taking (o, d, t_in, **keywords);
-    wide_trace's rows hold plain positions, whatever `leaf_fmt`."""
+def _traversal_kernel(kernel, leaf_fmt, rng, cuda):
+    """The wrapper of one of the three traversal kernels on random
+    geometry, taking (o, d, t_in, **keywords); wide_trace's rows hold
+    plain positions, whatever `leaf_fmt`."""
     import path_tracer_tpu_torch.scene.bvh8 as bvh8
     import path_tracer_tpu_torch.scene.model as model
     from path_tracer_tpu_torch.ops import trace_inst, trace_packet, trace_wide
@@ -552,53 +549,17 @@ def _redesigned_kernel(kernel, leaf_fmt, rng, cuda):
         packed = compile_scene(scene, device=cuda)
         tables = (packed.inst_nodes, packed.inst_tris, packed.inst_rows)
         tlas = packed.host_layout.tlas_rows
-        return (lambda *a, **k: trace_inst.inst_trace(
-                    *tables, *a, tlas, leaf_fmt=leaf_fmt, **k),
-                lambda *a, **k: trace_inst.inst_trace_plain(
-                    *tables, *a, tlas, leaf_fmt=leaf_fmt, **k))
+        return lambda *a, **k: trace_inst.inst_trace(
+            *tables, *a, tlas, leaf_fmt=leaf_fmt, **k)
     soup = _blob_soup(rng)
     if kernel == 'wide_trace':
         wide = bvh8.build_wide_bvh(*soup)
         tables = [torch.from_numpy(x).to(cuda) for x in (wide.nodes, wide.tris)]
-        return (lambda *a, **k: trace_wide.wide_trace(*tables, *a, **k),
-                lambda *a, **k: trace_wide.wide_trace_plain(*tables, *a, **k))
+        return lambda *a, **k: trace_wide.wide_trace(*tables, *a, **k)
     tables = [torch.from_numpy(x).to(cuda) for x in bvh8.pack_wide_geom(
         bvh8.build_wide_bvh(*soup), *soup)[:2]]
-    return (lambda *a, **k: trace_packet.wide_trace5(
-                *tables, *a, leaf_fmt=leaf_fmt, **k),
-            lambda *a, **k: trace_packet.wide_trace5_plain(
-                *tables, *a, leaf_fmt=leaf_fmt, **k))
-
-
-@pytest.mark.parametrize('leaf_fmt', ['mt', 'bary', 'woop'])
-@pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5', 'wide_trace'])
-def test_simple_kernel_matches_plain_version_without_cull(cuda, kernel,
-                                                          leaf_fmt, monkeypatch):
-    """The baseline kernels (variant='simple', csrc/*_simple.cu) against
-    the plain versions without the pop cull: every output and every
-    per-ray counter equal to the bit. Against the redesigned kernel t is
-    equal on these rays and the pops are no fewer."""
-    import path_tracer_tpu_torch.scene.bvh8 as bvh8
-
-    monkeypatch.setattr(bvh8, 'LEAF_FMT', leaf_fmt)
-    rng = np.random.default_rng(9)
-    run, plain = _redesigned_kernel(kernel, leaf_fmt, rng, cuda)
-    o, d, t_in = _random_rays(rng, 8192, cuda)
-    before = (launches(kernel), launches(kernel + '_simple'))
-    simple = run(o, d, t_in, stats=True, variant='simple')
-    uncounted = run(o, d, t_in, variant='simple')
-    torch.cuda.synchronize()
-    assert (launches(kernel), launches(kernel + '_simple')) == (before[0],
-                                                               before[1] + 2)
-    want = plain(o, d, t_in, stats=True, cull=False)
-    assert int((want[1] >= 0).sum()) > 30
-    for k, p in zip(simple, want):
-        assert torch.equal(k, p)
-    for k, p in zip(uncounted, want):
-        assert torch.equal(k, p)
-    new = run(o, d, t_in, stats=True)
-    assert torch.equal(new[0], simple[0])
-    assert bool((new[-1] <= simple[-1]).all())
+    return lambda *a, **k: trace_packet.wide_trace5(
+        *tables, *a, leaf_fmt=leaf_fmt, **k)
 
 
 @pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5', 'wide_trace',
@@ -606,28 +567,26 @@ def test_simple_kernel_matches_plain_version_without_cull(cuda, kernel,
 def test_kernel_anatomy(cuda, kernel):
     """What the kernels measure of themselves is consistent: efficiencies
     in (0, 1], at least one distinct row a pass, a stack at least one
-    deep, the same results with the counters on, and culled pops only in
-    the kernel that culls. The walk counts the lanes it walked and the
-    warps that held one, exactly."""
+    deep, the same results with the counters on, and some pops culled.
+    The walk counts the lanes it walked and the warps that held one,
+    exactly."""
     rng = np.random.default_rng(10)
     if kernel == 'openpbr_walk':
         _walk_anatomy(cuda, rng)
         return
-    run, _ = _redesigned_kernel(kernel, 'bary', rng, cuda)
+    run = _traversal_kernel(kernel, 'bary', rng, cuda)
     o, d, t_in = _random_rays(rng, 8192, cuda)
-    for variant in ('tuned', 'simple'):
-        plain_out = run(o, d, t_in, variant=variant)
-        *out, counts, rec = run(o, d, t_in, variant=variant, stats=True,
-                                anatomy=True)
-        for a, b in zip(out, plain_out):
-            assert torch.equal(a, b)
-        for key in ('simt_loop', 'simt_interior', 'simt_leaf'):
-            assert 0.0 < rec[key] <= 1.0, (key, rec[key])
-        assert 1.0 <= rec['interior_rows_per_pass'] <= 32.0
-        assert 1.0 <= rec['leaf_rows_per_pass'] <= 32.0
-        assert 1 <= rec['deepest_stack_max'] <= 128
-        assert rec['passes_interior'] * 32 >= int(counts[0].sum())
-        assert (rec['culled_pops_per_ray'] > 0) == (variant == 'tuned')
+    uncounted = run(o, d, t_in)
+    *out, counts, rec = run(o, d, t_in, stats=True, anatomy=True)
+    for a, b in zip(out, uncounted):
+        assert torch.equal(a, b)
+    for key in ('simt_loop', 'simt_interior', 'simt_leaf'):
+        assert 0.0 < rec[key] <= 1.0, (key, rec[key])
+    assert 1.0 <= rec['interior_rows_per_pass'] <= 32.0
+    assert 1.0 <= rec['leaf_rows_per_pass'] <= 32.0
+    assert 1 <= rec['deepest_stack_max'] <= 128
+    assert rec['passes_interior'] * 32 >= int(counts[0].sum())
+    assert rec['culled_pops_per_ray'] > 0
 
 
 @pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5', 'wide_trace',
@@ -658,14 +617,6 @@ def test_kernel_wrapper_rejects_bad_input(cuda, kernel):
                 dict(nodes=torch.zeros((128, 16), device=cuda).T)):
         with pytest.raises(ValueError):
             run(**bad)
-    with pytest.raises(ValueError):
-        if kernel == 'inst_trace':
-            trace_inst.inst_trace(nodes, tris, rows, o, o, t_in, 8,
-                                  variant='fast')
-        elif kernel == 'wide_trace5':
-            trace_packet.wide_trace5(nodes, tris, o, o, t_in, variant='fast')
-        else:
-            trace_wide.wide_trace(nodes, tris, o, o, t_in, variant='fast')
 
 
 # The walk kernel's inputs: base -> (base_metalness, transmission_weight).

@@ -1,5 +1,5 @@
 """The pop cull of the plain traversals, their stack depth and counters,
-and the ray sort of the render loop, on the CPU.
+and the traversal wrappers on CPU tensors.
 
 The pop cull drops a popped node whose box the ray enters later than its
 current t by more than the slab test's rounding (t * CULL_SLACK). A
@@ -28,13 +28,11 @@ import path_tracer_tpu_torch.scene.compile as tcompile
 import path_tracer_tpu_torch.scene.model as tmodel
 import path_tracer_tpu_torch.scene.procedural as tproc
 from path_tracer_tpu.ops.intersect import SceneLayout as JLayout
-from path_tracer_tpu_torch.integrator import wavefront
 from path_tracer_tpu_torch.ops.intersect import SceneLayout as TLayout
 from path_tracer_tpu_torch.ops import trace_inst, trace_packet, trace_wide
 
 from test_torch_compile import jax_fields, layout_fields
-from test_torch_cuda import (
-    blob_scene, flat_mode, textured_scene, two_instance_scene)
+from test_torch_cuda import blob_scene, flat_mode, two_instance_scene
 
 LEAF_FMTS = ['mt', 'bary', 'woop']
 
@@ -194,68 +192,45 @@ def test_shallow_stack_drops_pushes(mode, cull):
     assert torch.equal(shallow[1][kept], full[1][kept])
 
 
-def test_simple_variant_is_the_plain_version_without_cull():
-    """On CPU tensors variant='simple' runs the plain version without the
-    pop cull (what the simple kernels compute), the default with it, for
-    inst_trace and wide_trace; an unknown variant and an anatomy request
-    raise in all three wrappers."""
-    packed = _compiled('inst', 'port')
-    tables = (packed.inst_nodes, packed.inst_tris, packed.inst_rows)
-    tlas = packed.host_layout.tlas_rows
-    o, d = _rays(np.random.default_rng(13), 512, -6, 6)
-    t_in = torch.full((512,), 1e6)
-    for variant, cull in (('tuned', True), ('simple', False)):
-        got = trace_inst.inst_trace(*tables, o, d, t_in, tlas, stats=True,
-                                    variant=variant)
-        want = trace_inst.inst_trace_plain(*tables, o, d, t_in, tlas,
-                                           stats=True, cull=cull)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
-    with pytest.raises(ValueError):
-        trace_inst.inst_trace(*tables, o, d, t_in, tlas, variant='fast')
-    with pytest.raises(ValueError):
-        trace_inst.inst_trace(*tables, o, d, t_in, tlas, anatomy=True)
-    with pytest.raises(ValueError):
-        trace_packet.wide_trace5(packed.wide_nodes_g, packed.wide_tris_g, o, d,
-                                 t_in, variant='fast')
-
-    flat = _compiled('wide', 'port')
-    tables = (flat.wide_nodes, flat.wide_tris)
-    o, d = _rays(np.random.default_rng(15), 512, -3, 3)
-    for variant, cull in (('tuned', True), ('simple', False)):
-        got = trace_wide.wide_trace(*tables, o, d, t_in, stats=True,
-                                    variant=variant)
-        want = trace_wide.wide_trace_plain(*tables, o, d, t_in, stats=True,
-                                           cull=cull)
-        assert int((want[1] >= 0).sum()) > 30
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
-        if variant == 'tuned':
-            default = trace_wide.wide_trace(*tables, o, d, t_in, stats=True)
-            assert all(torch.equal(a, b) for a, b in zip(default, got))
-    with pytest.raises(ValueError):
-        trace_wide.wide_trace(*tables, o, d, t_in, variant='fast')
-    with pytest.raises(ValueError):
-        trace_wide.wide_trace(*tables, o, d, t_in, anatomy=True)
+def _wrapper(mode, packed):
+    """The traversal wrapper of `mode`, taking rays and keywords (the
+    counterpart of `_plain`)."""
+    if mode == 'inst':
+        tables = (packed.inst_nodes, packed.inst_tris, packed.inst_rows)
+        tlas = packed.host_layout.tlas_rows
+        return lambda o, d, t_in, **kw: trace_inst.inst_trace(
+            *tables, o, d, t_in, tlas, **kw)
+    if mode == 'wide':
+        return lambda *a, **kw: trace_wide.wide_trace(
+            packed.wide_nodes, packed.wide_tris, *a, **kw)
+    return lambda *a, **kw: trace_packet.wide_trace5(
+        packed.wide_nodes_g, packed.wide_tris_g, *a, **kw)
 
 
-@pytest.mark.parametrize('mode', ['inst', 'flat'])
-def test_render_is_the_same_with_and_without_ray_sort(mode):
-    """RenderConfig.sort_rays changes which rays are neighbours in the
-    kernel's input, not what any ray hits: after 3 rounds at 32x16 the
-    accumulators are identical."""
-    accums = []
-    for sort_rays in (True, False):
-        with flat_mode(tcompile) if mode == 'flat' else contextlib.nullcontext():
-            packed = tcompile.compile_scene(textured_scene(tmodel, tproc),
-                                            device='cpu')
-        config = wavefront.RenderConfig(width=32, height=16, sort_rays=sort_rays)
-        assert wavefront.wants_sort(config, packed.host_layout) == sort_rays
-        state = wavefront.render(packed, config, 3, seed=4)
-        accums.append(state['accum'])
-    assert float(accums[0]['count'].sum()) > 0
-    assert torch.equal(accums[0]['xyz'], accums[1]['xyz'])
-    assert torch.equal(accums[0]['count'], accums[1]['count'])
+@pytest.mark.parametrize('kernel', ['inst_trace', 'wide_trace5', 'wide_trace'])
+def test_cpu_wrapper_is_the_plain_version_with_cull(kernel):
+    """On CPU tensors each traversal wrapper runs its plain version with
+    the pop cull: every output and counter equal to the bit, with and
+    without `stats`; an anatomy request raises, since only the CUDA
+    kernels measure their anatomy."""
+    mode = {'inst_trace': 'inst', 'wide_trace5': 'flat',
+            'wide_trace': 'wide'}[kernel]
+    packed = _compiled(mode, 'port')
+    wrapper = _wrapper(mode, packed)
+    n = 512
+    o, d = (_rays(np.random.default_rng(13), n, -6, 6) if mode == 'inst'
+            else _rays(np.random.default_rng(15), n, -3, 3))
+    t_in = torch.full((n,), 1e6)
+    want = _plain(mode, packed)(o, d, t_in, cull=True)
+    assert int((want[1] >= 0).sum()) > 30
+    got = wrapper(o, d, t_in, stats=True)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(wrapper(o, d, t_in), want[:-1]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        wrapper(o, d, t_in, anatomy=True)
 
 
 @pytest.fixture(scope='module')

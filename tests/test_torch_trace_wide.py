@@ -221,19 +221,20 @@ def test_wide_trace_plain_matches_brute_force_and_pallas():
     assert (counts[1] <= counts[2]).all() and (counts[2] <= 4 * counts[1]).all()
 
 
-@pytest.mark.parametrize('variant', ['tuned', 'simple'])
-def test_wide_trace_tie_goes_to_the_lower_slot(variant):
+@pytest.mark.parametrize('cull', [True, False])
+def test_wide_trace_tie_goes_to_the_lower_slot(cull):
     """A leaf that holds one triangle in two slots, in two rows or in one:
-    the lower slot wins, as the kernels' sequential leaf loop decides and
-    the warp-wide leaf test must order its reduction. Every output equals
+    the lower slot wins, with and without the pop cull, as the kernel's
+    sequential leaf loop decides and the warp-wide leaf test must order
+    its reduction. Every output equals
     that of the tables with the upper copy taken out; with the lower one
     taken out instead the upper slot is hit at the same t to the bit, so
     the tie was real."""
     nodes, tris, o, d, t_in, pairs = tied_leaf(tbvh8, np.random.default_rng(16))
 
     def run(table):
-        return [x.numpy() for x in ttrace_wide.wide_trace(
-            *_t(nodes, table, o, d, t_in), variant=variant)]
+        return [x.numpy() for x in ttrace_wide.wide_trace_plain(
+            *_t(nodes, table, o, d, t_in), cull=cull)]
 
     def without(slots):
         table = tris.copy()
@@ -348,25 +349,14 @@ def flat_traces():
     return tp, torch.from_numpy(o), torch.from_numpy(d), packet, portable
 
 
-@pytest.mark.parametrize('mode', ['unsorted', 'sorted', 'portable'])
+@pytest.mark.parametrize('mode', ['kernel', 'portable'])
 @pytest.mark.parametrize('reference', ['packet', 'portable'])
 def test_flat_trace_matches_jax(flat_traces, mode, reference):
-    """The port's `trace` in 'flat' mode (through wide_trace5, rays
-    sorted or not) and through the portable BVH2 traversal, each against
-    JAX trace(use_packet=True, interpret=True) (the v5 kernel) and JAX
+    """The port's `trace` in 'flat' mode (through wide_trace5) and
+    through the portable BVH2 traversal, each against JAX
+    trace(use_packet=True, interpret=True) (the v5 kernel) and JAX
     trace(use_packet=False)."""
     tp, o, d, packet, portable = flat_traces
-    kwargs = dict(unsorted={}, sorted=dict(sort_rays=True),
-                  portable=dict(use_packet=False))[mode]
-    ht = tintersect.trace(tp, tp.host_layout, o, d, **kwargs)
+    ht = tintersect.trace(tp, tp.host_layout, o, d,
+                          use_packet=mode == 'kernel')
     _agree_hits(ht, packet if reference == 'packet' else portable)
-
-
-def test_flat_sorted_trace_equals_unsorted(flat_traces):
-    """The sort only permutes the kernel's rays: every per-ray result is
-    the same to the bit."""
-    tp, o, d, _, _ = flat_traces
-    hu = tintersect.trace(tp, tp.host_layout, o, d)
-    hs = tintersect.trace(tp, tp.host_layout, o, d, sort_rays=True)
-    for key in hu:
-        assert torch.equal(hu[key], hs[key]), key
