@@ -79,7 +79,11 @@ hand-written kernels against their plain PyTorch versions:
      one_weekend_final at 1200x675 with 8 waves (6,480,000, sphere hits),
      bit for bit in every field, with the bounds of the record scatter
      reads and of all the layer moves, and its `ptxas` registers and
-     spills;
+     spills; then `medium_event`: the medium-event kernel, which replaces
+     scatter's plain medium chain on the card, and that chain in turns on
+     the third-round lanes of the same two cells, bit for bit in every
+     output and the random state, with the layer's least bytes and what
+     the kernel moves, and its `ptxas` registers and spills;
  14. bench config 6 (`make_terrain_scene(side=900)`, 1.62M unique
      triangles) compiled once for 16:9: seconds, triangles, the bytes of
      every table;
@@ -909,6 +913,120 @@ def hit_attributes_phase(dev, card, ptxas_records, seed=2 ** 31 + 19):
         if not all(equal.values()) or engaged < lanes // 2:
             raise RuntimeError('the hit-attribute kernel disagrees with the '
                                f'plain chain in {name}')
+    return records
+
+
+def medium_bytes(lanes, interior_lanes):
+    """(the layer's least bytes, what the kernel moves) for one launch of
+    the medium-event kernel. The least is 36 words a lane
+    (benchmark/metrics/medium_roofline.py): 26 read (4 active-shape slots,
+    the primary wavelength, throughput, probability, the hit's time, shape
+    and normal, origin, direction, the 64-bit random state) and 10 written
+    (the absorbed throughput, the exterior IOR, the random state). The
+    kernel also writes the priority, three 1-byte masks and the volumetric
+    branch (origin, direction, throughput, probability: 14 words), and a
+    lane inside a shape reads its four wavelengths in place of one."""
+    least = lanes * 36 * 4
+    # The least's words without the primary wavelength, the priority and
+    # the volumetric branch, the masks, and the wavelengths inside shapes.
+    moved = lanes * (35 + 1 + 14) * 4 + lanes * 3 + interior_lanes * 16
+    return least, moved
+
+
+def medium_event_phase(dev, card, ptxas_records, seed=2 ** 31 + 23):
+    """Phase `medium_event`: the medium-event kernel (csrc/medium_event.cu)
+    against the plain version it replaces
+    (integrator/scatter.py::medium_event_plain), both on the card, on every
+    lane of two benchmark cells' states in their third round: the Cornell
+    box at 2880x2880 (8,294,400 lanes, all in the ambient medium) and
+    one_weekend_final at 1200x675 with 8 waves (6,480,000 lanes, some
+    inside glass). The inputs `scatter` hands the kernel are captured, then
+    both run on them, bit for bit in every output and the random state (a
+    difference fails the run), timed in turns and cold (after 384 MiB
+    written), beside the least bytes over HBM bandwidth and `ptxas`'s
+    registers and spills. Returns the records by cell."""
+    import types
+
+    import torch
+
+    from benchmark.harness.cell import load_cell
+    from path_tracer_tpu_torch.core import constants
+    from path_tracer_tpu_torch.integrator import scatter, wavefront
+    from path_tracer_tpu_torch.ops import intersect, medium_event
+    from path_tracer_tpu_torch.scene import model
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+    from test_torch_cuda import medium_event_plain_of, same_bits
+
+    api = types.SimpleNamespace(**{
+        k: v for m in (constants, model) for k, v in vars(m).items()
+        if not k.startswith('_')})
+    regs = [r for r in ptxas_records if r['source'] == 'medium_event.cu']
+    records = {}
+    for name in ATTRIBUTE_CELLS:
+        cell = load_cell(name)
+        width, height = cell.traffic['width'], cell.traffic['height']
+        packed = compile_scene(cell.maker.make_scene(api, cell.config),
+                               aspect_ratio=width / height, device=dev)
+        layout = intersect.SceneLayout.from_packed(packed)
+        config = wavefront.RenderConfig(
+            width=width, height=height, waves=cell.traffic.get('waves', 1),
+            flags=(constants.RENDER_FLAG_ACCUMULATE
+                   | constants.RENDER_FLAG_SAMPLE_JITTER),
+            camera_model=packed.host_camera_models[0])
+        term = cell.traffic['termination_probability']
+        state = wavefront.reset(packed, config, seed)
+        wavefront.render(packed, config, 2, state=state, layout=layout,
+                         termination_probability=term)
+        captured = []
+        launch = medium_event.medium_event
+        medium_event.medium_event = (
+            lambda p, t, lanes, **k: captured.append(
+                (t, {n: v.clone() for n, v in lanes.items()})) or launch(
+                    p, t, lanes, **k))
+        try:
+            wavefront.render_round(packed, layout, config, state, term)
+        finally:
+            medium_event.medium_event = launch
+        del state
+        (type_set, lanes), = captured
+
+        def kernel():
+            return launch(packed, type_set, lanes)
+
+        def plain():
+            return medium_event_plain_of(packed, type_set, lanes)
+
+        got, want = kernel(), plain()
+        equal = {k: bool(same_bits(got[k], want[k])) for k in want}
+        bins = torch.bincount(scatter.medium_bins(want), minlength=3).tolist()
+        del got, want
+        n = lanes['origin'].shape[1]
+        ms = time_in_turns({'kernel': kernel, 'plain': plain}, TIMING_REPS)
+        flush_buffer = torch.empty(96 * 2 ** 20, dtype=torch.float32,
+                                   device=dev)
+        ms_cold = cuda_ms(kernel, flush=flush_buffer.zero_)
+        del flush_buffer
+        least, moved = medium_bytes(n, bins[1] + bins[2])
+        least_ms = 1e3 * least / PEAK_BYTES_S
+        moved_ms = 1e3 * moved / PEAK_BYTES_S
+        rec = records[name] = dict(
+            nvidia_smi=card, cell=name, lanes=n,
+            bins=dict(zip(scatter.MEDIUM_BINS, bins)), equal=equal,
+            kernel_ms=ms['kernel'], kernel_ms_cold=ms_cold,
+            plain_ms=ms['plain'], speedup=ms['plain'] / ms['kernel'],
+            least_bytes=least, least_bound_ms=least_ms, moved_bytes=moved,
+            moved_bound_ms=moved_ms, bound_by='bytes',
+            roofline_pct=100.0 * least_ms / ms['kernel'],
+            moved_pct=100.0 * moved_ms / ms['kernel'],
+            registers=[r['registers'] for r in regs],
+            spill_bytes=[r['spill_store_bytes'] + r['spill_load_bytes']
+                         for r in regs])
+        log('medium_event', **rec)
+        del packed, lanes, kernel, plain
+        torch.cuda.empty_cache()
+        if not all(equal.values()):
+            raise RuntimeError('the medium-event kernel disagrees with the '
+                               f'plain version in {name}')
     return records
 
 
@@ -2149,6 +2267,11 @@ def main():
     torch.cuda.empty_cache()
     lap('hit_attributes')
 
+    # -- 13e. the medium-event kernel on two benchmark cells' lanes ----------
+    records['medium_event'] = medium_event_phase(dev, card, ptxas_records)
+    torch.cuda.empty_cache()
+    lap('medium_event')
+
     # -- 14-17. bench config 6 at 1920x1080 with 1 and 4 waves ----------------
     torch.cuda.empty_cache()
     terrain, terrain_layout, inst_bytes = terrain_compile(dev, WIDTH, HEIGHT)
@@ -2212,7 +2335,8 @@ def main():
         wide_trace=('trace_wide.cu', 'path_tracer_tpu/ops/trace_wide.py:97'),
         openpbr_walk=('openpbr_walk.cu', None),
         shape_trace=('shape_trace.cu', None),
-        hit_attributes=('hit_attributes.cu', None))
+        hit_attributes=('hit_attributes.cu', None),
+        medium_event=('medium_event.cu', None))
     print(json.dumps({'kernels': [dict(
         name=name, route='cuda',
         source='path_tracer_tpu_torch/csrc/' + sources[name][0],

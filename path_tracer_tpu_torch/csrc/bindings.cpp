@@ -10,6 +10,7 @@
 #include <vector>
 
 #include "hit_attributes.h"
+#include "medium_event.h"
 #include "openpbr_walk.h"
 
 extern "C" int inst_trace_launch(const float* nodes, const float* tris,
@@ -229,6 +230,60 @@ void openpbr_walk(const std::vector<torch::Tensor>& in,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// Queues csrc/medium_event.cu: `in` and `out` hold the tensors of
+// ops/medium_event.py's KERNEL_INPUTS and KERNEL_OUTPUTS in their order
+// (the fields of MediumEventArgs), `models` the MediumEventModels bits of
+// the scene's type set, `stats` empty or the kernel's three int64
+// counters. Raises if the launch was refused.
+void medium_event(const std::vector<torch::Tensor>& in,
+                  const std::vector<torch::Tensor>& out, int64_t models,
+                  torch::Tensor& stats, int64_t stream) {
+  TORCH_CHECK(in.size() == 23 && out.size() == 11,
+              "medium_event takes 23 inputs and 11 outputs");
+  MediumEventArgs a;
+  a.n = in[4].numel();
+  a.n_shapes = in[10].numel();
+  a.n_materials = in[12].numel();
+  a.models = static_cast<int>(models);
+  a.active_shapes = in[0].data_ptr<int32_t>();
+  a.lam = in[1].data_ptr<float>();
+  a.throughput = in[2].data_ptr<float>();
+  a.probability = in[3].data_ptr<float>();
+  a.time = in[4].data_ptr<float>();
+  a.shape = in[5].data_ptr<int32_t>();
+  a.normal = in[6].data_ptr<float>();
+  a.origin = in[7].data_ptr<float>();
+  a.direction = in[8].data_ptr<float>();
+  a.rng_state = in[9].data_ptr<int64_t>();
+  a.shape_material = in[10].data_ptr<int32_t>();
+  a.scatter_rate = in[11].data_ptr<float>();
+  a.type = in[12].data_ptr<int32_t>();
+  a.ior = in[13].data_ptr<float>();
+  a.abbe_number = in[14].data_ptr<float>();
+  a.transmission_spectrum = in[15].data_ptr<float>();
+  a.transmission_depth = in[16].data_ptr<float>();
+  a.scattering_spectrum = in[17].data_ptr<float>();
+  a.scattering_anisotropy = in[18].data_ptr<float>();
+  a.specular_ior = in[19].data_ptr<float>();
+  a.transmission_dispersion_abbe = in[20].data_ptr<float>();
+  a.transmission_scatter_spectrum = in[21].data_ptr<float>();
+  a.transmission_scatter_anisotropy = in[22].data_ptr<float>();
+  a.priority = out[0].data_ptr<int32_t>();
+  a.throughput_out = out[1].data_ptr<float>();
+  a.medium_event = out[2].data_ptr<bool>();
+  a.vol_scatter = out[3].data_ptr<bool>();
+  a.sky_hit = out[4].data_ptr<bool>();
+  a.vol_origin = out[5].data_ptr<float>();
+  a.vol_dir = out[6].data_ptr<float>();
+  a.vol_throughput = out[7].data_ptr<float>();
+  a.vol_probability = out[8].data_ptr<float>();
+  a.exterior_ior = out[9].data_ptr<float>();
+  a.rng_state_out = out[10].data_ptr<int64_t>();
+  a.stats = stats.numel() ? stats.data_ptr<int64_t>() : nullptr;
+  medium_event_launch(&a, reinterpret_cast<void*>(stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -242,6 +297,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Closest analytic-shape hit over a shape BVH (csrc/shape_trace.cu)");
   m.def("hit_attributes", &hit_attributes,
         "The resolved hit record, one thread a lane (csrc/hit_attributes.cu)");
+  m.def("medium_event", &medium_event,
+        "The medium event of a scatter round, one thread a lane "
+        "(csrc/medium_event.cu)");
   m.def("openpbr_walk", &openpbr_walk,
         "The OpenPBR BSDF sample, one thread a lane (csrc/openpbr_walk.cu)");
 }

@@ -1,15 +1,19 @@
-// The core/ helpers that the OpenPBR layer walk (openpbr_walk.cu) calls,
-// for one lane: core/vec.py (safe_normalize, max4), core/sampling.py
-// (the PCG stream of Rng, ggx_roughness_alpha, ggx_smith_g1,
-// ggx_visible_normal, ggx_distribution), core/optics.py
+// The core/ helpers that the OpenPBR layer walk (openpbr_walk.cu) and the
+// medium event (medium_event.cu) call, for one lane: core/vec.py
+// (normalize, safe_normalize, max4), core/sampling.py (the PCG stream of
+// Rng, compute_tangent_vector, coordinate_frame, sample_direction_hg,
+// ggx_roughness_alpha, ggx_smith_g1, ggx_visible_normal,
+// ggx_distribution), core/optics.py
 // (cauchy_empirical_ior, cos_theta_refracted, fresnel_dielectric,
 // schlick_fresnel_metal) and core/spectrum.py
 // (sample_parametric_spectrum).
 //
 // Each function takes the float32 operations of the PyTorch function it is
 // named after in the same order, with Python's scalars rounded to float32
-// as PyTorch rounds them, the accurate sqrtf/sinf/cosf/powf, and NaN
-// passed on where torch.clamp and torch.maximum pass it on. Built with
+// as PyTorch rounds them (a division by a Python scalar as PyTorch's CUDA
+// kernel takes it: times the scalar's reciprocal rounded to float32;
+// `1.0 / x` as torch's reciprocal), the accurate sqrtf/sinf/cosf/powf, and
+// NaN passed on where torch.clamp and torch.maximum pass it on. Built with
 // -fmad=false (ops/build.py), every `a * b + c` rounds twice, as the plain
 // version's separate tensor operations do.
 
@@ -71,6 +75,10 @@ __device__ __forceinline__ float sign(float x) {
 
 // ---- core/vec.py ---------------------------------------------------------
 
+__device__ __forceinline__ V3 normalize(V3 a) {
+  return scale(a, 1.0f / sqrtf(dot(a, a)));
+}
+
 __device__ __forceinline__ V3 safe_normalize(V3 a) {
   const float lsq = dot(a, a);
   if (lsq < 1e-12f) return {0.0f, 0.0f, 1.0f};
@@ -99,6 +107,35 @@ __device__ __forceinline__ float uniform(uint32_t& state) {
 // The state after `draws` more draws whose values nobody reads.
 __device__ __forceinline__ void skip_draws(uint32_t& state, int draws) {
   for (int k = 0; k < draws; ++k) state = state * 747796405u + 2891336453u;
+}
+
+__device__ __forceinline__ V3 compute_tangent_vector(V3 n) {
+  const V3 axis = fabsf(n.x) < 0.9f ? V3{1.0f, 0.0f, 0.0f}
+                                    : V3{0.0f, 1.0f, 0.0f};
+  return safe_normalize(cross(axis, n));
+}
+
+// The frame (x, y) that completes the unit vector z.
+__device__ __forceinline__ void coordinate_frame(V3 z, V3& x, V3& y) {
+  x = compute_tangent_vector(z);
+  y = cross(x, z);
+}
+
+// Henyey-Greenstein, in the frame whose +Z is the incident direction; the
+// plain version computes both z's and selects, which gives the same bits.
+__device__ __forceinline__ V3 sample_direction_hg(float g, float u1,
+                                                  float u2) {
+  float z;
+  if (fabsf(g) < 1e-3f) {
+    z = 1.0f - 2.0f * u1;
+  } else {
+    const float s = (1.0f - g * g) / (1.0f + g - 2.0f * g * u1);
+    z = -(1.0f + g * g - s * s) / (2.0f * g);
+  }
+  z = clamp(z, -1.0f, 1.0f);
+  const float r = sqrtf(clamp_min(1.0f - z * z, 0.0f));
+  const float phi = u2 * TAU;
+  return {r * cosf(phi), r * sinf(phi), z};
 }
 
 struct Alpha {
@@ -152,14 +189,16 @@ __device__ __forceinline__ float ggx_distribution(V3 n, Alpha a) {
 
 // Python's double constants of the Cauchy formula (lc, ld, lf = 656.3,
 // 587.6, 486.1 nm), rounded to float32 where the tensor code meets them:
-// 1 / lf^2 - 1 / lc^2 and ld^2.
+// 1 / lf^2 - 1 / lc^2, and 1 / ld^2, which PyTorch's CUDA division by the
+// scalar ld^2 multiplies by (the reciprocal of the double, rounded; the
+// float32 reciprocal of float32 ld^2 is one ulp above it).
 constexpr float CAUCHY_INV_SPAN = 0x1.006874p-19f;
-constexpr float CAUCHY_LD_SQ = 345273.75f;
+constexpr float CAUCHY_INV_LD_SQ = 0x1.84ba7ap-19f;
 
 __device__ __forceinline__ float cauchy_empirical_ior(float base_ior,
                                                       float abbe, float lam) {
   const float b = (base_ior - 1.0f) / (abbe * CAUCHY_INV_SPAN);
-  const float a = base_ior - b / CAUCHY_LD_SQ;
+  const float a = base_ior - b * CAUCHY_INV_LD_SQ;
   return a + b / (lam * lam);
 }
 

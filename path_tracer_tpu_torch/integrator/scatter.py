@@ -46,7 +46,14 @@ from ..core.spectrum import (
 from ..core.vec import dot, max4, normalize, sum4, vec3
 from ..models import dispatch
 from ..models.common import fetch_ctx, fetch_medium_ctx, sample_texture
+from ..ops import medium_event as medium_event_kernel
 from ..utils import profiling
+
+# The lanes of a medium event by what they are in: no active shape (the
+# ambient medium), a shape's medium, and a scattering event in a volume,
+# whatever the medium (a device count while tracing).
+MEDIUM_LANES = 'pt.scatter.medium.lanes'
+MEDIUM_BINS = ('ambient', 'interior', 'volume')
 
 
 def fetch_medium(packed, shape_index, lam, types=()):
@@ -71,6 +78,109 @@ def fetch_medium(packed, shape_index, lam, types=()):
         absorption=torch.where(is_none, 0.0, medium['absorption']),
         scattering=torch.where(is_none, ambient_scatter, medium['scattering']),
         anisotropy=torch.where(is_none, 0.0, medium['anisotropy']),
+    )
+
+
+def medium_event(packed, types, active_shapes, lam, throughput, probability,
+                 hit, ray_origin, ray_direction, rng: Rng):
+    """The medium event of a scatter round (basic_scatter.glsl:123-164 and
+    the medium lookups of :177-200), as `medium_event_plain` computes it
+    and with its draws from `rng`: on a CUDA device one launch of
+    csrc/medium_event.cu (ops/medium_event.py), which adds the MEDIUM_LANES
+    counter itself while tracing is on; on the CPU the plain version."""
+    dev = ray_origin.device
+    if dev.type == 'cuda':
+        # The kernel reads each input as contiguous rows (a copy only where
+        # one is not).
+        lanes = dict(active_shapes=active_shapes, lam=lam,
+                     throughput=throughput, probability=probability,
+                     time=hit['time'], shape=hit['shape'],
+                     normal=hit['normal'], origin=ray_origin,
+                     direction=ray_direction, rng_state=rng.state)
+        out = medium_event_kernel.medium_event(
+            packed, types, {k: v.contiguous() for k, v in lanes.items()},
+            stats=profiling.kernel_counts(MEDIUM_LANES, dev, bins=MEDIUM_BINS))
+        rng.state = out.pop('rng_state')
+        return out
+    if dev.type != 'cpu':
+        raise ValueError(f'medium_event: unsupported device {dev}')
+    out = medium_event_plain(packed, types, active_shapes, lam, throughput,
+                             probability, hit, ray_origin, ray_direction, rng)
+    if profiling.enabled():
+        profiling.count(MEDIUM_LANES, medium_bins(out), bins=MEDIUM_BINS)
+    return out
+
+
+def medium_bins(event):
+    """Each lane's MEDIUM_BINS index from a medium event's outputs."""
+    inside = (event['priority'] != SHAPE_INDEX_NONE).to(torch.int32)
+    return torch.where(event['vol_scatter'], 2, inside)
+
+
+def medium_event_plain(packed, types, active_shapes, lam, throughput,
+                       probability, hit, ray_origin, ray_direction, rng: Rng):
+    """The medium event in plain PyTorch, on any device.
+
+    From the state's (LIMIT, N) active-shape lists, the (4, N) hero
+    wavelengths, throughput and probability, the hit's time, shape and
+    normal and the (3, N) ray: the innermost shape's medium (fetch_medium)
+    and the absorption along the segment, then three draws from `rng`
+    (the free flight, and the Henyey-Greenstein sample's two), the event
+    masks, the volumetric branch for every lane, and the IOR on the other
+    side of the surface hit (the current medium's where the ray enters
+    it, the exterior shape's where it leaves it, 1 off a real interface).
+    Returns dict(priority (N,) int32, throughput (4, N), medium_event,
+    vol_scatter, sky_hit (N,) bool, vol_origin, vol_dir (3, N),
+    vol_throughput, vol_probability, exterior_ior (4, N))."""
+    active_shape = torch.amin(active_shapes, dim=0)
+    medium = fetch_medium(packed, active_shape, lam, types)
+    throughput = throughput * torch.exp(-medium['absorption'] * hit['time'])
+
+    # Scattering event time at the primary wavelength.
+    u_scatter = rng.uniform()
+    rate0 = medium['scattering'][0]
+    scattering_time = torch.where(
+        rate0 > 0.0,
+        -torch.log(torch.clamp(u_scatter, min=1e-12))
+        / torch.clamp(rate0, min=1e-12),
+        HIT_TIME_LIMIT)
+    medium_event = hit['time'] >= scattering_time
+    vol_scatter = medium_event & (scattering_time < HIT_TIME_LIMIT)
+
+    # Volumetric scattering (basic_scatter.glsl:142-164).
+    u1 = rng.uniform()
+    u2 = rng.uniform()
+    hg_local = sample_direction_hg(medium['anisotropy'], u1, u2)
+    vx, vy = coordinate_frame(ray_direction)
+    vol_dir = normalize(hg_local[0] * vx + hg_local[1] * vy
+                        + hg_local[2] * ray_direction)
+    density = medium['scattering'] * torch.exp(
+        -medium['scattering'] * scattering_time)
+    density = density / torch.clamp(max4(density), min=EPSILON)
+
+    # Exterior IOR on the other side of the interface: the first shape of
+    # the list after the innermost.
+    hit_exterior = -dot(ray_direction, hit['normal']) > 0.0
+    is_real = torch.where(hit_exterior, active_shape > hit['shape'],
+                          active_shape == hit['shape'])
+    exclude = torch.where(active_shapes == active_shape, SHAPE_INDEX_NONE,
+                          active_shapes)
+    exterior_medium = fetch_medium(packed, torch.amin(exclude, dim=0), lam,
+                                   types)
+    exterior_ior = torch.where(
+        hit_exterior, medium['ior'],
+        torch.where(is_real, exterior_medium['ior'], 1.0))
+    return dict(
+        priority=active_shape,
+        throughput=throughput,
+        medium_event=medium_event,
+        vol_scatter=vol_scatter,
+        sky_hit=medium_event & ~vol_scatter,
+        vol_origin=ray_origin + ray_direction * scattering_time,
+        vol_dir=vol_dir,
+        vol_throughput=throughput * density,
+        vol_probability=probability * density,
+        exterior_ior=torch.where(is_real, exterior_ior, 1.0),
     )
 
 
@@ -160,63 +270,37 @@ def scatter(packed, state, ray_origin, ray_direction, hit, rng: Rng,
         lam = hero_wavelength_cluster(state['lambda0'])  # (4, N)
 
         active_shapes = state['active_shapes']           # (LIMIT, N)
-        active_shape = torch.amin(active_shapes, dim=0)
-
-        # Statically medium-free scenes (no translucent or OpenPBR material
-        # and no ambient scatter rate) skip the two fetch_medium gathers, the
-        # absorption and the volumetric branch: the priority is the raw shape
-        # index. The three draws are still consumed.
-        scene_has_medium = layout.scene_has_medium
-        n_lanes = active_shape.shape[0]
-        if scene_has_medium:
-            with profiling.span('pt.scatter.medium'):
-                medium = fetch_medium(packed, active_shape, lam, types)
-                throughput = state['throughput'] * torch.exp(
-                    -medium['absorption'] * hit['time'])
-        else:
-            medium = dict(priority=active_shape)
-            throughput = state['throughput']
         probability = state['probability']
         sample = state['sample']                         # (3, N)
+        n_lanes = active_shapes.shape[1]
 
-        # Scattering event time at the primary wavelength. Without a medium
-        # it is the horizon: no lane scatters in a volume (the JAX package's
+        # The medium event: the lane's medium, the absorption, the free
+        # flight at the primary wavelength, the volumetric branch and the
+        # exterior IOR (medium_event). Statically medium-free scenes (no
+        # translucent or OpenPBR material and no ambient scatter rate) skip
+        # it: the priority is the raw shape index, the event time the
+        # horizon, so no lane scatters in a volume (the JAX package's
         # vol_scatter is a constant False there, which its compiler folds
         # away, as the merges below do), and a lane's event is the skybox
-        # where it hit nothing.
-        u_scatter = rng.uniform()
+        # where it hit nothing. The three draws are still consumed.
+        scene_has_medium = layout.scene_has_medium
         if scene_has_medium:
             with profiling.span('pt.scatter.medium'):
-                rate0 = medium['scattering'][0]
-                scattering_time = torch.where(
-                    rate0 > 0.0,
-                    -torch.log(torch.clamp(u_scatter, min=1e-12))
-                    / torch.clamp(rate0, min=1e-12),
-                    HIT_TIME_LIMIT)
-                medium_event = hit['time'] >= scattering_time
-                vol_scatter = medium_event & (scattering_time < HIT_TIME_LIMIT)
-                sky_hit = medium_event & ~vol_scatter
+                event = medium_event(packed, types, active_shapes, lam,
+                                     state['throughput'], probability, hit,
+                                     ray_origin, ray_direction, rng)
+            priority = event['priority']
+            throughput = event['throughput']
+            medium_event_mask = event['medium_event']
+            vol_scatter = event['vol_scatter']
+            sky_hit = event['sky_hit']
         else:
-            medium_event = sky_hit = hit['time'] >= HIT_TIME_LIMIT
-        surface_event = ~medium_event
-
-        # Volumetric scattering (basic_scatter.glsl:142-164).
-        u1 = rng.uniform()
-        u2 = rng.uniform()
-        if scene_has_medium:
-            with profiling.span('pt.scatter.medium'):
-                hg_local = sample_direction_hg(medium['anisotropy'], u1, u2)
-                vx, vy = coordinate_frame(ray_direction)
-                vol_dir = normalize(hg_local[0] * vx + hg_local[1] * vy
-                                    + hg_local[2] * ray_direction)
-                vol_origin = ray_origin + ray_direction * scattering_time
-                density = medium['scattering'] * torch.exp(
-                    -medium['scattering'] * scattering_time)
-                density = density / torch.clamp(max4(density), min=EPSILON)
-                vol_throughput = throughput * density
-                vol_probability = probability * density
-        else:
-            vol_dir = vol_origin = vol_throughput = vol_probability = None
+            priority = torch.amin(active_shapes, dim=0)
+            throughput = state['throughput']
+            for _ in range(3):
+                rng.uniform()
+            medium_event_mask = sky_hit = hit['time'] >= HIT_TIME_LIMIT
+        surface_event = ~medium_event_mask
 
         # Skybox emission (basic_scatter.glsl:165-172).
         emission = sample_skybox_radiance(packed, ray_direction, lam,
@@ -234,22 +318,11 @@ def scatter(packed, state, ray_origin, ray_direction, hit, rng: Rng,
                      dot(ray_direction, hit['normal']))
         hit_exterior = view[2] > 0.0
         shape_priority = hit['shape']
-        is_real = torch.where(hit_exterior, medium['priority'] > shape_priority,
-                              medium['priority'] == shape_priority)
-
+        is_real = torch.where(hit_exterior, priority > shape_priority,
+                              priority == shape_priority)
         # Exterior IOR on the other side of the interface.
-        if scene_has_medium:
-            with profiling.span('pt.scatter.medium'):
-                exclude = torch.where(active_shapes == active_shape,
-                                      SHAPE_INDEX_NONE, active_shapes)
-                exterior_shape = torch.amin(exclude, dim=0)
-                exterior_medium = fetch_medium(packed, exterior_shape, lam, types)
-                exterior_ior = torch.where(
-                    hit_exterior, medium['ior'],
-                    torch.where(is_real, exterior_medium['ior'], 1.0))
-                exterior_ior = torch.where(is_real, exterior_ior, 1.0)
-        else:
-            exterior_ior = torch.ones((4, n_lanes), device=view.device)
+        exterior_ior = (event['exterior_ior'] if scene_has_medium
+                        else torch.ones((4, n_lanes), device=view.device))
 
         with profiling.span('pt.scatter.material'):
             ctx = fetch_ctx(packed, hit['material'], lam, hit['uv'], exterior_ior,
@@ -329,14 +402,15 @@ def scatter(packed, state, ray_origin, ray_direction, hit, rng: Rng,
         # Merge the three branches.
         def merge(vol, sky, surf):
             out = torch.where(sky_hit, sky, surf)
-            return torch.where(vol_scatter, vol, out) if scene_has_medium else out
+            return (torch.where(vol_scatter, event[vol], out)
+                    if scene_has_medium else out)
 
-        new_throughput = merge(vol_throughput, throughput, surf_throughput)
-        new_probability = merge(vol_probability, torch.zeros_like(probability),
+        new_throughput = merge('vol_throughput', throughput, surf_throughput)
+        new_probability = merge('vol_probability', torch.zeros_like(probability),
                                 surf_probability)
         new_sample = torch.where(sky_hit, sky_sample, sample)
-        new_origin = merge(vol_origin, ray_origin, surf_origin)
-        new_direction = merge(vol_dir, ray_direction, surf_dir)
+        new_origin = merge('vol_origin', ray_origin, surf_origin)
+        new_direction = merge('vol_dir', ray_direction, surf_dir)
 
         if layout.has_opacity:
             new_direction = torch.where(ghost, ray_direction, new_direction)

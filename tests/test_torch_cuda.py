@@ -1115,20 +1115,26 @@ def test_sharded_render_world_of_one_on_card(cuda):
         dist.destroy_process_group()
 
 
-def one_weekend_scene():
-    """The benchmark's one_weekend_final scene (484 spheres, thin lens,
-    sky), built by the port from its configuration file."""
+def cell_scene(name):
+    """The scene of the benchmark cell `name`, built by the port from its
+    configuration file."""
     import types
 
     from benchmark.harness.cell import load_cell
     from path_tracer_tpu_torch.core import constants
     from path_tracer_tpu_torch.scene import model
 
-    cell = load_cell('one_weekend_final.offline_1200x675_w8')
+    cell = load_cell(name)
     api = types.SimpleNamespace(**{k: v for m in (constants, model)
                                    for k, v in vars(m).items()
                                    if not k.startswith('_')})
     return cell.maker.make_scene(api, cell.config)
+
+
+def one_weekend_scene():
+    """The benchmark's one_weekend_final scene (484 spheres, thin lens,
+    sky)."""
+    return cell_scene('one_weekend_final.offline_1200x675_w8')
 
 
 def _shape_rays(case, packed, cuda, n=65536):
@@ -1413,3 +1419,245 @@ def test_hit_attributes_wrapper_rejects_bad_input(cuda):
                 *(dict(hit=dict(hit, **f)) for f in bad_fields)):
         with pytest.raises(ValueError):
             run(**bad)
+
+
+def medium_lanes(n, seed=5, inner=(1,), outer=(2,), device='cpu'):
+    """Inputs of the medium event for n random lanes (ops/medium_event.py's
+    LANE_INPUTS): active-shape lists holding one of the shapes `inner` in
+    slot 0 on about half the lanes and one of `outer` in slot 2 on about a
+    fifth, wavelengths, weights, rays and a hit record."""
+    rng = np.random.default_rng(seed)
+    shapes = np.full((4, n), SHAPE_INDEX_NONE, np.int32)
+    shapes[0] = np.where(rng.random(n) < 0.5, rng.choice(inner, n),
+                         SHAPE_INDEX_NONE)
+    shapes[2] = np.where(rng.random(n) < 0.2, rng.choice(outer, n),
+                         SHAPE_INDEX_NONE)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    nrm = rng.normal(size=(3, n)).astype(np.float32)
+    arrays = dict(
+        active_shapes=shapes,
+        lam=rng.uniform(380, 720, (4, n)).astype(np.float32),
+        throughput=rng.uniform(0, 1, (4, n)).astype(np.float32),
+        probability=rng.uniform(0.1, 1, (4, n)).astype(np.float32),
+        time=rng.uniform(0, 10, n).astype(np.float32),
+        shape=rng.choice(list(inner) + list(outer), n).astype(np.int32),
+        normal=nrm / np.linalg.norm(nrm, axis=0),
+        origin=rng.uniform(-3, 3, (3, n)).astype(np.float32),
+        direction=d / np.linalg.norm(d, axis=0),
+        rng_state=rng.integers(0, 2 ** 32, n, dtype=np.int64))
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def medium_event_plain_of(packed, types, lanes):
+    """integrator/scatter.py's medium_event_plain on the LANE_INPUTS of
+    `lanes`, with the random state it leaves as `rng_state`."""
+    from path_tracer_tpu_torch.core.sampling import Rng
+    from path_tracer_tpu_torch.integrator import scatter
+
+    rng = Rng(lanes['rng_state'].clone())
+    hit = {k: lanes[k] for k in ('time', 'shape', 'normal')}
+    out = scatter.medium_event_plain(
+        packed, types, lanes['active_shapes'], lanes['lam'],
+        lanes['throughput'], lanes['probability'], hit, lanes['origin'],
+        lanes['direction'], rng)
+    out['rng_state'] = rng.state
+    return out
+
+
+def medium_bin_counts(event):
+    """The MEDIUM_BINS counts of a medium event's outputs."""
+    from path_tracer_tpu_torch.integrator import scatter
+
+    counts = torch.bincount(scatter.medium_bins(event), minlength=3)
+    return dict(zip(scatter.MEDIUM_BINS, counts.tolist()))
+
+
+# The scenes whose rounds the medium-event kernel is held to: the
+# benchmark's Cornell box (every lane in the ambient medium), its
+# one_weekend_final scene (glass interiors) and the OpenPBR scene (fog,
+# translucent and OpenPBR media, nested shapes); with a film size each.
+MEDIUM_CASES = {
+    'cornell': (lambda: cell_scene('cornell_box.offline_1440x1440'), 128, 128),
+    'one_weekend': (one_weekend_scene, 160, 90),
+    'openpbr': (lambda: openpbr_scene(*_scene_modules()), 64, 32),
+}
+
+
+def _scene_modules():
+    import path_tracer_tpu_torch.scene.model as model
+    import path_tracer_tpu_torch.scene.procedural as proc
+    return model, proc
+
+
+@pytest.mark.parametrize('case', sorted(MEDIUM_CASES))
+def test_medium_event_kernel_matches_plain_version(cuda, case, monkeypatch):
+    """csrc/medium_event.cu, as `scatter` launches it in a render round,
+    against medium_event_plain on the card on the same inputs, bit for bit
+    in every output of every lane and in the random state it leaves, with
+    tracing off and on (the kernel's two instantiations); one launch a
+    round, and while tracing its lane bins equal those of the plain
+    outputs and sum to the lanes. The Cornell box's lanes are all in the
+    ambient medium, one_weekend's glass puts some inside a shape, and the
+    OpenPBR scene's fog scatters some in a volume and nests shapes."""
+    from path_tracer_tpu_torch.integrator import scatter, wavefront
+    from path_tracer_tpu_torch.ops import medium_event
+    from path_tracer_tpu_torch.ops.intersect import SceneLayout
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+
+    make, width, height = MEDIUM_CASES[case]
+    packed = compile_scene(make(), aspect_ratio=width / height, device=cuda)
+    layout = SceneLayout.from_packed(packed)
+    config = wavefront.RenderConfig(width=width, height=height)
+    state = wavefront.reset(packed, config, seed=4)
+    for _ in range(3):
+        wavefront.render_round(packed, layout, config, state, 0.05)
+    captured = []
+    launch = medium_event.medium_event
+
+    def capture(packed, types, lanes, stats=None):
+        inputs = {k: v.clone() for k, v in lanes.items()}
+        out = launch(packed, types, lanes, stats=stats)
+        captured.append((types, inputs, dict(out)))
+        return out
+
+    monkeypatch.setattr(medium_event, 'medium_event', capture)
+    seen = dict.fromkeys(scatter.MEDIUM_BINS, 0)
+    nested = 0
+    for traced in (False, True):
+        profiling.reset()
+        with profiling.tracing() if traced else contextlib.nullcontext():
+            wavefront.render_round(packed, layout, config, state, 0.05)
+            counted = profiling.counters()
+        assert counted['kernel.medium_event'] == 1
+        types, lanes, got = captured.pop()
+        want = medium_event_plain_of(packed, types, lanes)
+        assert set(got) == set(want)
+        for key in want:
+            assert same_bits(got[key], want[key]), (
+                key, traced, int((got[key] != want[key]).sum()))
+        bins = medium_bin_counts(want)
+        assert sum(bins.values()) == width * height
+        if traced:
+            assert counted[scatter.MEDIUM_LANES] == bins
+        else:
+            assert scatter.MEDIUM_LANES not in counted
+        for k, v in bins.items():
+            seen[k] += v
+        filled = (lanes['active_shapes'] != SHAPE_INDEX_NONE).sum(0)
+        nested += int((filled >= 2).sum())
+    assert seen['ambient'] > 0
+    if case == 'cornell':
+        assert seen['interior'] == seen['volume'] == 0, seen
+    elif case == 'one_weekend':
+        assert seen['interior'] > 0 and seen['volume'] == 0, seen
+    else:
+        assert seen['interior'] > 0 and seen['volume'] > 0 and nested > 0, (
+            seen, nested)
+
+
+def random_medium_tables(n, seed, device):
+    """The tables the medium event reads, made up: n shapes, each with a
+    material slot of its own of a random type, IOR, Abbe number,
+    transmission depth (zero on a quarter), spectra and anisotropy, and a
+    scatter rate for the ambient medium."""
+    import types
+
+    rng = np.random.default_rng(seed)
+
+    def col(*shape, lo=0.0, hi=1.0):
+        return torch.from_numpy(rng.uniform(lo, hi, shape + (n,)).astype(
+            np.float32)).to(device)
+
+    depth = col(lo=0.05, hi=2.0)
+    depth[torch.from_numpy(rng.random(n) < 0.25).to(device)] = 0.0
+    materials = types.SimpleNamespace(
+        type=torch.from_numpy(rng.integers(0, 4, n).astype(np.int32)).to(device),
+        ior=col(lo=1.2, hi=2.4), abbe_number=col(lo=15.0, hi=80.0),
+        transmission_spectrum=col(3, lo=-3.0, hi=3.0),
+        transmission_depth=depth,
+        scattering_spectrum=col(3, lo=-3.0, hi=3.0),
+        scattering_anisotropy=col(lo=-0.9, hi=0.9),
+        specular_ior=col(lo=1.2, hi=2.4),
+        transmission_dispersion_abbe=col(lo=15.0, hi=80.0),
+        transmission_scatter_spectrum=col(3, lo=-3.0, hi=3.0),
+        transmission_scatter_anisotropy=col(lo=-0.9, hi=0.9))
+    return types.SimpleNamespace(
+        shape_material=torch.arange(n, dtype=torch.int32, device=device),
+        scene_scatter_rate=torch.tensor(0.05, device=device),
+        materials=materials)
+
+
+@pytest.mark.parametrize('tables', ['scene', 'generic', 'random'])
+def test_medium_event_kernel_matches_plain_version_on_random_lanes(cuda,
+                                                                   tables):
+    """The kernel against medium_event_plain on 65,536 random lanes, bit
+    for bit, and its counters against the plain outputs' bins: inside the
+    OpenPBR scene's translucent and OpenPBR shapes with the scene's type
+    set and with the generic one (every model), and inside 4,096 made-up
+    shapes of all four types, each with its own IOR, dispersion, depth,
+    spectra and anisotropy, in fog."""
+    from path_tracer_tpu_torch.ops import medium_event
+    from path_tracer_tpu_torch.ops.intersect import SceneLayout
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+
+    if tables == 'random':
+        packed, type_set = random_medium_tables(4096, 12, cuda), ()
+        inner = outer = tuple(range(4096))
+    else:
+        packed = compile_scene(openpbr_scene(*_scene_modules()), device=cuda)
+        type_set = (SceneLayout.from_packed(packed).material_types
+                    if tables == 'scene' else ())
+        # Shapes 2, 4 and 5: the translucent OpenPBR sphere, the glass mesh
+        # ball and the rough glass sphere; 7 the emissive OpenPBR ceiling.
+        inner, outer = (2, 4, 5), (4, 5, 7)
+    lanes = medium_lanes(65536, seed=8, inner=inner, outer=outer, device=cuda)
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    got = medium_event.medium_event(packed, type_set, lanes, stats=stats)
+    want = medium_event_plain_of(packed, type_set, lanes)
+    for key in want:
+        assert same_bits(got[key], want[key]), (
+            key, int((got[key] != want[key]).sum()))
+    bins = medium_bin_counts(want)
+    assert dict(zip(bins, stats.tolist())) == bins
+    assert all(v > 0 for v in bins.values()), bins
+
+
+def test_medium_event_on_the_main_path(cuda):
+    """A render launches the kernel once a round where the scene has a
+    medium, and never where it has none."""
+    import path_tracer_tpu_torch as tpkg
+
+    profiling.reset()
+    img = tpkg.render_scene(openpbr_scene(*_scene_modules()), 64, 32,
+                            spp_rounds=4, device=cuda)
+    assert launches('medium_event') == 4
+    assert bool(torch.isfinite(img).all())
+    profiling.reset()
+    tpkg.render_scene(blob_scene(_scene_modules()[0])[0], 64, 32,
+                      spp_rounds=2, device=cuda)
+    assert launches('medium_event') == 0
+
+
+def test_medium_event_wrapper_rejects_bad_input(cuda):
+    """The wrapper checks device, dtype, shape and layout of every tensor
+    it hands the kernel before it launches."""
+    from path_tracer_tpu_torch.ops import medium_event
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+
+    packed = compile_scene(openpbr_scene(*_scene_modules()), device=cuda)
+    lanes = medium_lanes(256, inner=(4,), outer=(5,), device=cuda)
+    medium_event.medium_event(packed, (), lanes)
+    bad = (dict(time=lanes['time'].double()),
+           dict(shape=lanes['shape'].float()),
+           dict(origin=lanes['origin'].cpu()),
+           dict(normal=lanes['normal'][:2]),
+           dict(lam=lanes['lam'][:, :128]),
+           dict(direction=lanes['direction'].T.contiguous().T),
+           dict(rng_state=lanes['rng_state'].to(torch.int32)))
+    for fields in bad:
+        with pytest.raises(ValueError):
+            medium_event.medium_event(packed, (), dict(lanes, **fields))
+    with pytest.raises(ValueError):
+        medium_event.medium_event(
+            packed, (), lanes,
+            stats=torch.zeros(4, dtype=torch.int64, device=cuda))
