@@ -8,6 +8,8 @@ scatter, so the models themselves are elementwise math.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..core.constants import (
@@ -18,6 +20,11 @@ from ..core.constants import (
     TEXTURE_INDEX_NONE,
 )
 from ..core.spectrum import sample_parametric_spectrum
+from ..utils import profiling
+
+# The span around fetch_ctx's surface-texture taps (off unless tracing).
+TEXTURE_SPAN = 'pt.scatter.material.texture'
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _bilinear(c00, c10, c01, c11, fx, fy):
@@ -212,17 +219,20 @@ def fetch_ctx(packed, material_index, lam, uv, exterior_ior,
     m = packed.materials
     i = material_index
 
+    def taps(attr):
+        return textured and attr in textured_attrs
+
     def reflectance(spectrum, texture, attr):
-        return texturable_reflectance(
-            packed, col(spectrum, i), col(texture, i), lam, uv,
-            textured and attr in textured_attrs, atlas_size, filter_modes,
-            use_quad)
+        with profiling.span(TEXTURE_SPAN) if taps(attr) else _NO_SPAN:
+            return texturable_reflectance(
+                packed, col(spectrum, i), col(texture, i), lam, uv,
+                taps(attr), atlas_size, filter_modes, use_quad)
 
     def value(column, texture, attr):
-        return texturable_value(
-            packed, col(column, i), col(texture, i), uv,
-            textured and attr in textured_attrs, atlas_size, filter_modes,
-            use_quad)
+        with profiling.span(TEXTURE_SPAN) if taps(attr) else _NO_SPAN:
+            return texturable_value(
+                packed, col(column, i), col(texture, i), uv, taps(attr),
+                atlas_size, filter_modes, use_quad)
 
     ctx = dict(
         type=col(m.type, i),
