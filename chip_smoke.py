@@ -83,7 +83,14 @@ hand-written kernels against their plain PyTorch versions:
      scatter's plain medium chain on the card, and that chain in turns on
      the third-round lanes of the same two cells, bit for bit in every
      output and the random state, with the layer's least bytes and what
-     the kernel moves, and its `ptxas` registers and spills;
+     the kernel moves, and its `ptxas` registers and spills; then
+     `basic_sample`: the basic models' BSDF-sample kernel, which replaces
+     the plain per-model samples and their selects on the card, and the
+     plain dispatch in turns on the third-round lanes of one_weekend_final,
+     next_week_final (whose OpenPBR light the walk samples first) and the
+     Cornell box at 2880x2880, bit for bit in every output of every lane
+     that samples, with the lanes of each model, the layer's least bytes
+     and what the kernel moves, and its `ptxas` registers and spills;
  14. bench config 6 (`make_terrain_scene(side=900)`, 1.62M unique
      triangles) compiled once for 16:9: seconds, triangles, the bytes of
      every table;
@@ -931,6 +938,165 @@ def medium_bytes(lanes, interior_lanes):
     # the volumetric branch, the masks, and the wavelengths inside shapes.
     moved = lanes * (35 + 1 + 14) * 4 + lanes * 3 + interior_lanes * 16
     return least, moved
+
+
+BASIC_CELLS = ('one_weekend_final.offline_1200x675_w8',
+               'next_week_final.offline_800x800_w10',
+               'cornell_box.offline_2880x2880')
+# Bytes of one launch of the basic-sample kernel: every lane reads its type
+# and its `where` entry (the walk's OpenPBR lanes the type alone); a lane
+# that samples reads its uniforms and the columns of its model and writes
+# the sample (scattered 3 words, throughput and probability 4 each, valid
+# a byte: 45 bytes); without OpenPBR in the set a lane that does not sample
+# writes a sample that is not valid, which no caller reads.
+BASIC_READ_BYTES = {0: 2 * 4 + 4 * 4,                         # u1 u2, base
+                    1: 2 * 4 + 3 * 4 + 2 * 4 * 4 + 2 * 4,     # view, spectra
+                    2: 3 * 4 + 3 * 4 + 2 * 4 * 4 + 4 * 4}     # lam, ext IOR
+BASIC_WRITE_BYTES = 3 * 4 + 2 * 4 * 4 + 1
+
+
+def basic_bytes(counts, lanes, walk_lanes, with_walk):
+    """(the layer's least bytes, what the kernel moves) for one launch of
+    the basic-sample kernel over `lanes` lanes, `counts[m]` of which sample
+    model m and `walk_lanes` of which are the walk's OpenPBR lanes. The
+    least counts a sampling lane's reads and writes and every other lane's
+    type and mask; the kernel also writes the lanes that do not sample,
+    unless the walk's outputs are completed in place."""
+    sampled = sum(counts)
+    least = (5 * (lanes - walk_lanes) + 4 * walk_lanes
+             + sum(c * (BASIC_READ_BYTES[m] + BASIC_WRITE_BYTES)
+                   for m, c in enumerate(counts)))
+    idle = lanes - walk_lanes - sampled
+    return least, least + (0 if with_walk else idle * BASIC_WRITE_BYTES)
+
+
+def basic_sample_phase(dev, card, ptxas_records, seed=2 ** 31 + 29):
+    """Phase `basic_sample`: the basic models' BSDF-sample kernel
+    (csrc/basic_sample.cu) against the plain dispatch it replaces
+    (models/dispatch.py::sample_bsdf_plain: every model of the set on every
+    lane, then the selects), both on the card, on every lane of three
+    benchmark cells' states in their third round: one_weekend_final
+    (6,480,000 lanes; diffuse, metal, glass), next_week_final (6,400,000;
+    the same models and the OpenPBR light, which the walk samples first on
+    both sides) and the Cornell box at 2880x2880 (8,294,400; diffuse and
+    the OpenPBR light). The inputs `scatter` hands `dispatch.sample_bsdf`
+    are captured; the card's path (the walk where the set holds OpenPBR,
+    then the kernel in place) and the plain dispatch run on them from the
+    same random state, bit for bit in every output of every lane that
+    samples (a difference fails the run), timed in turns and the kernel
+    alone cold (after 384 MiB written), beside its bytes over HBM bandwidth
+    and `ptxas`'s registers and spills. Returns the records by cell."""
+    import types
+
+    import torch
+
+    from benchmark.harness.cell import load_cell
+    from path_tracer_tpu_torch.core import constants
+    from path_tracer_tpu_torch.core.sampling import Rng
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.models import dispatch, openpbr
+    from path_tracer_tpu_torch.ops import basic_sample, intersect
+    from path_tracer_tpu_torch.scene import model
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+    from test_torch_cuda import basic_models, basic_plain, same_bits
+
+    api = types.SimpleNamespace(**{
+        k: v for m in (constants, model) for k, v in vars(m).items()
+        if not k.startswith('_')})
+    regs = [r for r in ptxas_records if r['source'] == 'basic_sample.cu']
+    records = {}
+    for name in BASIC_CELLS:
+        cell = load_cell(name)
+        width, height = cell.traffic['width'], cell.traffic['height']
+        packed = compile_scene(cell.maker.make_scene(api, cell.config),
+                               aspect_ratio=width / height, device=dev)
+        layout = intersect.SceneLayout.from_packed(packed)
+        config = wavefront.RenderConfig(
+            width=width, height=height, waves=cell.traffic.get('waves', 1),
+            flags=(constants.RENDER_FLAG_ACCUMULATE
+                   | constants.RENDER_FLAG_SAMPLE_JITTER),
+            camera_model=packed.host_camera_models[0])
+        term = cell.traffic['termination_probability']
+        state = wavefront.reset(packed, config, seed)
+        wavefront.render(packed, config, 2, state=state, layout=layout,
+                         termination_probability=term)
+        captured = []
+        sample = dispatch.sample_bsdf
+
+        def capture(ctx, view, rng, types=(), where=None):
+            captured.append((ctx, view, rng.state.clone(), types, where))
+            return sample(ctx, view, rng, types, where)
+
+        dispatch.sample_bsdf = capture
+        try:
+            wavefront.render_round(packed, layout, config, state, term)
+        finally:
+            dispatch.sample_bsdf = sample
+        del state
+        (ctx, view, start, type_set, where), = captured
+        cols = {k: ctx[k].contiguous() for k in basic_sample.CTX_INPUTS
+                if k in ctx}
+        with_walk = constants.MATERIAL_TYPE_OPENPBR in dispatch.active_types(
+            type_set)
+        rng = Rng(start.clone())
+        u = [rng.uniform() for _ in range(3)]
+        walk_out = (openpbr.sample_bsdf(ctx, view, *u, Rng(rng.state.clone()),
+                                        where) if with_walk else None)
+
+        def card_path():
+            return sample(ctx, view, Rng(start.clone()), type_set, where)
+
+        def plain():
+            return basic_plain(ctx, view, start, type_set, where)
+
+        # The kernel alone completes the walk's outputs in place: the same
+        # lanes with the same values at every launch.
+        out = None if walk_out is None else [x.clone() for x in walk_out]
+
+        def kernel():
+            return basic_sample.basic_sample(cols, view, *u, type_set, where,
+                                             out=out)
+
+        models = basic_models(ctx['type'], type_set, where)
+        got, want = card_path(), plain()
+        lanes_used = models >= 0
+        equal = {k: bool(same_bits(g[..., lanes_used], w[..., lanes_used]))
+                 for k, g, w in zip(('scattered', 'throughput', 'probability',
+                                     'valid'), got, want)}
+        del got, want
+        counts = [int((models == m).sum()) for m in range(3)]
+        n = view.shape[1]
+        walk_lanes = int((ctx['type'] == constants.MATERIAL_TYPE_OPENPBR).sum()
+                         ) if with_walk else 0
+        ms = time_in_turns({'card_path': card_path, 'plain': plain,
+                            'kernel': kernel}, TIMING_REPS)
+        flush_buffer = torch.empty(96 * 2 ** 20, dtype=torch.float32,
+                                   device=dev)
+        ms_cold = cuda_ms(kernel, flush=flush_buffer.zero_)
+        del flush_buffer
+        least, moved = basic_bytes(counts, n, walk_lanes, with_walk)
+        least_ms = 1e3 * least / PEAK_BYTES_S
+        moved_ms = 1e3 * moved / PEAK_BYTES_S
+        rec = records[name] = dict(
+            nvidia_smi=card, cell=name, lanes=n, types=list(type_set),
+            sampled=dict(zip(('diffuse', 'metal', 'translucent'), counts)),
+            walk_lanes=walk_lanes, equal=equal, kernel_ms=ms['kernel'],
+            kernel_ms_cold=ms_cold, card_path_ms=ms['card_path'],
+            plain_ms=ms['plain'], speedup=ms['plain'] / ms['card_path'],
+            least_bytes=least, least_bound_ms=least_ms, moved_bytes=moved,
+            moved_bound_ms=moved_ms, bound_by='bytes',
+            roofline_pct=100.0 * least_ms / ms['kernel'],
+            moved_pct=100.0 * moved_ms / ms['kernel'],
+            registers=[r['registers'] for r in regs],
+            spill_bytes=[r['spill_store_bytes'] + r['spill_load_bytes']
+                         for r in regs])
+        log('basic_sample', **rec)
+        del packed, ctx, view, cols, walk_out, out, kernel, plain, card_path
+        torch.cuda.empty_cache()
+        if not all(equal.values()):
+            raise RuntimeError('the basic-sample kernel disagrees with the '
+                               f'plain dispatch in {name}')
+    return records
 
 
 def medium_event_phase(dev, card, ptxas_records, seed=2 ** 31 + 23):
@@ -2272,6 +2438,11 @@ def main():
     torch.cuda.empty_cache()
     lap('medium_event')
 
+    # -- 13f. the basic-sample kernel on three benchmark cells' lanes --------
+    records['basic_sample'] = basic_sample_phase(dev, card, ptxas_records)
+    torch.cuda.empty_cache()
+    lap('basic_sample')
+
     # -- 14-17. bench config 6 at 1920x1080 with 1 and 4 waves ----------------
     torch.cuda.empty_cache()
     terrain, terrain_layout, inst_bytes = terrain_compile(dev, WIDTH, HEIGHT)
@@ -2336,7 +2507,8 @@ def main():
         openpbr_walk=('openpbr_walk.cu', None),
         shape_trace=('shape_trace.cu', None),
         hit_attributes=('hit_attributes.cu', None),
-        medium_event=('medium_event.cu', None))
+        medium_event=('medium_event.cu', None),
+        basic_sample=('basic_sample.cu', None))
     print(json.dumps({'kernels': [dict(
         name=name, route='cuda',
         source='path_tracer_tpu_torch/csrc/' + sources[name][0],

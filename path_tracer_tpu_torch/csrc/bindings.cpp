@@ -9,6 +9,7 @@
 
 #include <vector>
 
+#include "basic_sample.h"
 #include "hit_attributes.h"
 #include "medium_event.h"
 #include "openpbr_walk.h"
@@ -284,6 +285,48 @@ void medium_event(const std::vector<torch::Tensor>& in,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// Queues csrc/basic_sample.cu: `in` holds the tensors of
+// ops/basic_sample.py's KERNEL_INPUTS in their order (the fields of
+// BasicSampleArgs; a column no model of the set reads is an empty tensor),
+// `out` those of KERNEL_OUTPUTS, `where` is empty or the (N,) bool mask of
+// the lanes whose sample is used, `models` the BasicSampleModels bits of the
+// scene's type set, `stats` empty or the kernel's three int64 counters.
+// Raises if the launch was refused.
+void basic_sample(const std::vector<torch::Tensor>& in,
+                  const std::vector<torch::Tensor>& out,
+                  const torch::Tensor& where, int64_t models,
+                  torch::Tensor& stats, int64_t stream) {
+  TORCH_CHECK(in.size() == 13 && out.size() == 4,
+              "basic_sample takes 13 inputs and 4 outputs");
+  auto column = [](const torch::Tensor& t) {
+    return t.numel() ? t.data_ptr<float>() : nullptr;
+  };
+  BasicSampleArgs a;
+  a.n = in[0].numel();
+  a.models = static_cast<int>(models);
+  a.type = in[0].data_ptr<int32_t>();
+  a.where = where.numel() ? where.data_ptr<bool>() : nullptr;
+  a.view = in[1].data_ptr<float>();
+  a.u1 = in[2].data_ptr<float>();
+  a.u2 = in[3].data_ptr<float>();
+  a.u3 = in[4].data_ptr<float>();
+  a.lam = column(in[5]);
+  a.exterior_ior = column(in[6]);
+  a.base_reflectance = column(in[7]);
+  a.specular_reflectance = column(in[8]);
+  a.roughness = column(in[9]);
+  a.roughness_anisotropy = column(in[10]);
+  a.ior = column(in[11]);
+  a.abbe_number = column(in[12]);
+  a.scattered = out[0].data_ptr<float>();
+  a.throughput = out[1].data_ptr<float>();
+  a.probability = out[2].data_ptr<float>();
+  a.valid = out[3].data_ptr<bool>();
+  a.stats = stats.numel() ? stats.data_ptr<int64_t>() : nullptr;
+  basic_sample_launch(&a, reinterpret_cast<void*>(stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -300,6 +343,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("medium_event", &medium_event,
         "The medium event of a scatter round, one thread a lane "
         "(csrc/medium_event.cu)");
+  m.def("basic_sample", &basic_sample,
+        "The basic models' BSDF samples, one thread a lane "
+        "(csrc/basic_sample.cu)");
   m.def("openpbr_walk", &openpbr_walk,
         "The OpenPBR BSDF sample, one thread a lane (csrc/openpbr_walk.cu)");
 }

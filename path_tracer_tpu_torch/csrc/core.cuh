@@ -1,5 +1,6 @@
-// The core/ helpers that the OpenPBR layer walk (openpbr_walk.cu) and the
-// medium event (medium_event.cu) call, for one lane: core/vec.py
+// The core/ helpers that the OpenPBR layer walk (openpbr_walk.cu), the
+// medium event (medium_event.cu) and the basic models' samples
+// (basic_sample.cu) call, for one lane: core/vec.py
 // (normalize, safe_normalize, max4), core/sampling.py (the PCG stream of
 // Rng, compute_tangent_vector, coordinate_frame, sample_direction_hg,
 // ggx_roughness_alpha, ggx_smith_g1, ggx_visible_normal,
@@ -54,9 +55,14 @@ __device__ __forceinline__ V3 cross(V3 a, V3 b) {
 
 __device__ __forceinline__ S4 fill4(float s) { return {{s, s, s, s}}; }
 
-// torch.clamp(x, min=lo) and torch.clamp(x, lo, hi): NaN stays NaN.
+// torch.clamp(x, min=lo), torch.clamp(x, max=hi) and torch.clamp(x, lo,
+// hi): NaN stays NaN.
 __device__ __forceinline__ float clamp_min(float x, float lo) {
   return x != x ? x : fmaxf(x, lo);
+}
+
+__device__ __forceinline__ float clamp_max(float x, float hi) {
+  return x != x ? x : fminf(x, hi);
 }
 
 __device__ __forceinline__ float clamp(float x, float lo, float hi) {
@@ -217,9 +223,11 @@ __device__ __forceinline__ float fresnel_dielectric(float eta, float cos1,
   return 0.5f * (sqrt_rs * sqrt_rs + sqrt_rp * sqrt_rp);
 }
 
-// Python's (1 - 1/7) ** 5 and (1/7) * (1 - 1/7) ** 6, in float32.
+// Python's (1 - 1/7) ** 5 in float32, and the reciprocal of its
+// (1/7) * (1 - 1/7) ** 6 taken in double and rounded: PyTorch's CUDA
+// division by that Python scalar multiplies by it.
 constexpr float SCHLICK_MAX_POW5 = 0x1.d9c4b0p-2f;
-constexpr float SCHLICK_DENOMINATOR = 0x1.d0197ep-5f;
+constexpr float SCHLICK_INV_DENOMINATOR = 0x1.1a6c12p+4f;
 
 __device__ __forceinline__ float schlick_fresnel_metal(float base,
                                                        float specular,
@@ -230,7 +238,7 @@ __device__ __forceinline__ float schlick_fresnel_metal(float base,
   const float f_max = specular * f_schlick_max;
   const float nominator = cos_theta * powf(one_minus, 6.0f);
   return f_schlick -
-         (nominator / SCHLICK_DENOMINATOR) * (f_schlick_max - f_max);
+         (nominator * SCHLICK_INV_DENOMINATOR) * (f_schlick_max - f_max);
 }
 
 // ---- core/spectrum.py ----------------------------------------------------

@@ -3,10 +3,11 @@
 Port of path_tracer_tpu/models/dispatch.py. The reference branches per
 GPU thread (scene.glsl.inc:687-764); here, as in the JAX package, every
 lane evaluates every model of the scene and the results are selected by
-material type, with one exception: on the card OpenPBR's sample branches
-per lane too, inside one kernel (csrc/openpbr_walk.cu) that walks only
-the OpenPBR lanes whose sample is used; its other lanes are never
-selected.
+material type, except for the BSDF sample on the card, which branches per
+lane too: OpenPBR's inside one kernel (csrc/openpbr_walk.cu) that walks
+only the OpenPBR lanes whose sample is used, and the three basic models'
+inside another (csrc/basic_sample.cu, ops/basic_sample.py) in which each
+lane whose sample is used samples only its own model.
 `types` is the static set from SceneLayout.material_types:
 a scene without an OpenPBR material never runs the 8-bounce layer walk,
 and a diffuse-only scene runs one model with no selects. An empty tuple
@@ -25,6 +26,7 @@ from ..core.constants import (
     MATERIAL_TYPE_BASIC_TRANSLUCENT,
     MATERIAL_TYPE_OPENPBR,
 )
+from ..ops.basic_sample import CTX_INPUTS as BASIC_CTX_INPUTS, basic_sample
 from ..utils import profiling
 from . import basic_diffuse, basic_metal, basic_translucent, openpbr
 
@@ -41,6 +43,11 @@ TYPE_NAMES = tuple(_MODELS[t].__name__.rsplit('.', 1)[-1]
                    for t in sorted(_MODELS))
 _SAMPLE_SPANS = {t: f'pt.model.{TYPE_NAMES[t]}.sample' for t in _MODELS}
 _LANE_COUNTS = {t: f'pt.model.{TYPE_NAMES[t]}.lanes' for t in _MODELS}
+# On the card: the span around the basic models' one launch, and their
+# lane counters in the kernel's order (diffuse, metal, translucent).
+BASIC_SPAN = 'pt.model.basic.sample'
+BASIC_LANE_COUNTS = tuple(_LANE_COUNTS[t] for t in sorted(_MODELS)
+                          if t != MATERIAL_TYPE_OPENPBR)
 
 
 def active_types(types):
@@ -71,17 +78,48 @@ def has_dirac_bsdf(ctx, types=()):
 
 def sample_bsdf(ctx, view, rng, types=(), where=None):
     """MaterialSampleBSDF over all lanes. Every model shares the same
-    three uniforms, so lane streams stay aligned; OpenPBR's layer walk
-    draws its own from `rng` after them. `where` ((N,) bool, or None for
-    every lane) holds the lanes whose sample the caller uses: OpenPBR's
-    kernel on the card walks no other lane (their samples are not valid);
-    every other model, and the plain walk, computes every lane. Each
-    model runs in a span `pt.model.<name>.sample` and counts the lanes it
-    ran on in `pt.model.<name>.lanes`: every lane, except OpenPBR's kernel
-    on the card, which counts the lanes it walked (models/openpbr.py)."""
+    three uniforms, drawn here first, so lane streams stay aligned;
+    OpenPBR's layer walk draws its own from `rng` after them. `where`
+    ((N,) bool, or None for every lane) holds the lanes whose sample the
+    caller uses. On CUDA tensors the OpenPBR walk (models/openpbr.py) and
+    one launch of csrc/basic_sample.cu for the basic models sample those
+    lanes alone, each lane only its own model, and no other lane's sample
+    is valid; the basic launch runs in the span `pt.model.basic.sample`
+    and, while tracing, counts the lanes that sampled each basic model in
+    `pt.model.<name>.lanes` on the device. On CPU tensors it is
+    `sample_bsdf_plain`."""
     u1 = rng.uniform()
     u2 = rng.uniform()
     u3 = rng.uniform()
+    if view.device.type == 'cpu':
+        return sample_bsdf_plain(ctx, view, u1, u2, u3, rng, types, where)
+    if view.device.type != 'cuda':
+        raise ValueError(f'dispatch.sample_bsdf: unsupported device {view.device}')
+    act = active_types(types)
+    out = None
+    if MATERIAL_TYPE_OPENPBR in act:
+        with profiling.span(_SAMPLE_SPANS[MATERIAL_TYPE_OPENPBR]):
+            out = openpbr.sample_bsdf(ctx, view, u1, u2, u3, rng, where)
+    if act != (MATERIAL_TYPE_OPENPBR,):
+        with profiling.span(BASIC_SPAN):
+            # fetch_ctx's columns come from gathers, texture taps and
+            # selects; the kernel reads each as contiguous rows.
+            out = basic_sample(
+                {k: ctx[k].contiguous() for k in BASIC_CTX_INPUTS if k in ctx},
+                view.contiguous(), u1, u2, u3, types,
+                None if where is None else where.contiguous(), out=out,
+                stats=profiling.kernel_counts(BASIC_LANE_COUNTS, view.device))
+    return out
+
+
+def sample_bsdf_plain(ctx, view, u1, u2, u3, rng, types=(), where=None):
+    """The BSDF sample in plain PyTorch, on any device, from the three
+    uniforms u1..u3: every model of `types` on every lane, then selected
+    by type. OpenPBR's `sample_bsdf` draws its walk from `rng` (its
+    kernel on the card, which walks only the lanes in `where`). Each model
+    runs in a span `pt.model.<name>.sample` and counts the lanes it ran on
+    in `pt.model.<name>.lanes`: every lane, except OpenPBR's kernel on the
+    card, which counts the lanes it walked (models/openpbr.py)."""
     results = {}
     for t in active_types(types):
         with profiling.span(_SAMPLE_SPANS[t]):

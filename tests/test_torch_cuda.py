@@ -8,7 +8,8 @@ build the same scene from the same numbers;
 builds `wide_trace`'s tables with one triangle in two slots of a leaf;
 `openpbr_ctx` makes the material columns of OpenPBR lanes (with
 `unit_directions` and `spectrum_beta`) for the JAX comparison and for the
-walk kernel's tests.
+walk kernel's tests, `basic_lanes` those of lanes of all four models for
+the basic-sample kernel's.
 
 The tests here launch the hand-written CUDA kernels and compare them
 with their plain PyTorch versions on the card. They carry the `cuda`
@@ -1661,3 +1662,280 @@ def test_medium_event_wrapper_rejects_bad_input(cuda):
         medium_event.medium_event(
             packed, (), lanes,
             stats=torch.zeros(4, dtype=torch.int64, device=cuda))
+
+
+BASIC_NAMES = ('basic_diffuse', 'basic_metal', 'basic_translucent')
+
+
+def basic_lanes(n, seed, device):
+    """Material contexts of n made-up lanes for the basic models' sample,
+    with OpenPBR's columns too (openpbr_ctx): every lane a random type of
+    the four, a quarter of the lanes smooth (roughness 0 or 5e-4, Dirac
+    metal and glass), the others rough, isotropic or not, a third of the
+    glass lanes under water (exterior IOR 1.33); views from both sides
+    (entering and leaving glass), with the axis directions and a view in
+    the surface's plane among them; and the three uniforms."""
+    rng = np.random.default_rng(seed)
+    ctx = openpbr_ctx(rng, n)
+    ctx['type'] = rng.integers(0, 4, n).astype(np.int32)
+    rough = rng.uniform(0.02, 1.0, n)
+    rough[rng.random(n) < 0.15] = 0.0
+    rough[rng.random(n) < 0.1] = 5e-4
+    ctx['roughness'] = rough.astype(np.float32)
+    ctx['roughness_anisotropy'] = np.where(
+        rng.random(n) < 0.5, 0.0, rng.uniform(0, 0.9, n)).astype(np.float32)
+    ctx['exterior_ior'] = np.repeat(np.where(
+        rng.random(n) < 0.67, 1.0, 1.33).astype(np.float32)[None], 4, 0)
+    ctx['ior'] = rng.uniform(1.2, 2.4, n).astype(np.float32)
+    ctx['abbe_number'] = rng.uniform(15, 80, n).astype(np.float32)
+    view = unit_directions(rng, n)
+    view[:, :6] = np.array([[0, 0, 1], [0, 0, -1], [1, 0, 0], [0, 1, 0],
+                            [0.6, 0, 0.8], [0, 0.6, -0.8]], np.float32).T
+    u = [rng.uniform(0, 1, n).astype(np.float32) for _ in range(3)]
+    return _on(device, ctx, view, u)
+
+
+def basic_models(ctx_type, types, where):
+    """The basic model each lane samples on the card, -1 for none: its own
+    type where the set holds it, the set's first model for a type outside
+    the set, none on the walk's OpenPBR lanes or outside `where`."""
+    from path_tracer_tpu_torch.models import dispatch
+
+    act = dispatch.active_types(types)
+    t = ctx_type.long()
+    in_set = torch.zeros_like(t, dtype=torch.bool)
+    for a in act:
+        in_set |= t == a
+    model = torch.where(in_set, t, act[0])
+    model = torch.where(model == MATERIAL_TYPE_OPENPBR, -1, model)
+    return model if where is None else torch.where(where, model, -1)
+
+
+def basic_plain(ctx, view, rng_state, types, where):
+    """models/dispatch.py's sample_bsdf_plain on the card from a stream's
+    state: its three draws, and the OpenPBR walk's after them."""
+    from path_tracer_tpu_torch.core.sampling import Rng
+    from path_tracer_tpu_torch.models import dispatch
+
+    rng = Rng(rng_state.clone())
+    u = [rng.uniform() for _ in range(3)]
+    return dispatch.sample_bsdf_plain(ctx, view, *u, rng, types, where)
+
+
+def assert_basic_sample(got, want, models):
+    """The kernel's sample equal to the plain one to the bit on every lane
+    that samples a basic model, in all four outputs."""
+    lanes = models >= 0
+    for name, g, w in zip(('scattered', 'throughput', 'probability', 'valid'),
+                          got, want):
+        g, w = g[..., lanes], w[..., lanes]
+        assert same_bits(g, w), (name, int((g != w).sum()))
+
+
+# The scenes whose rounds the basic-sample kernel is held to: the glass
+# ball (diffuse, smooth glass, rough metal), one_weekend_final (diffuse,
+# metal of four fuzz levels, smooth glass), the OpenPBR scene (OpenPBR
+# beside smooth and rough glass) and the Cornell box (diffuse beside the
+# OpenPBR light); with a film size each.
+BASIC_CASES = {
+    'glass_ball': (lambda: glass_ball_scene(*_scene_modules()), 96, 48),
+    'one_weekend': (one_weekend_scene, 160, 90),
+    'openpbr': (lambda: openpbr_scene(*_scene_modules()), 64, 32),
+    'cornell': (lambda: cell_scene('cornell_box.offline_1440x1440'), 128, 128),
+}
+
+
+@pytest.mark.parametrize('case', sorted(BASIC_CASES))
+def test_basic_sample_kernel_matches_plain_version(cuda, case, monkeypatch):
+    """csrc/basic_sample.cu, as `scatter` launches it in a render round,
+    against sample_bsdf_plain on the card on the same inputs, bit for bit
+    in every output of every lane it samples, with tracing off and on (the
+    kernel's two instantiations): one launch a round, no sample valid
+    outside the surface events, and while tracing its lane counters equal
+    the lanes of each model among the surface events."""
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.models import dispatch
+    from path_tracer_tpu_torch.ops.intersect import SceneLayout
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+
+    make, width, height = BASIC_CASES[case]
+    packed = compile_scene(make(), aspect_ratio=width / height, device=cuda)
+    layout = SceneLayout.from_packed(packed)
+    config = wavefront.RenderConfig(width=width, height=height)
+    state = wavefront.reset(packed, config, seed=4)
+    for _ in range(3):
+        wavefront.render_round(packed, layout, config, state, 0.05)
+    captured = []
+    sample = dispatch.sample_bsdf
+
+    def capture(ctx, view, rng, types=(), where=None):
+        start = rng.state.clone()
+        out = sample(ctx, view, rng, types, where)
+        captured.append(({k: v.clone() for k, v in ctx.items()}, view.clone(),
+                         start, types, where.clone(),
+                         tuple(x.clone() for x in out)))
+        return out
+
+    monkeypatch.setattr(dispatch, 'sample_bsdf', capture)
+    seen = dict.fromkeys(BASIC_NAMES, 0)
+    for traced in (False, True):
+        profiling.reset()
+        with profiling.tracing() if traced else contextlib.nullcontext():
+            wavefront.render_round(packed, layout, config, state, 0.05)
+            counted = profiling.counters()
+        assert counted['kernel.basic_sample'] == 1
+        ctx, view, start, types, where, got = captured.pop()
+        want = basic_plain(ctx, view, start, types, where)
+        models = basic_models(ctx['type'], types, where)
+        assert_basic_sample(got, want, models)
+        if MATERIAL_TYPE_OPENPBR not in dispatch.active_types(types):
+            assert not bool(got[3][~where].any())
+        for m, name in enumerate(BASIC_NAMES):
+            lanes = int((models == m).sum())
+            seen[name] += lanes
+            key = f'pt.model.{name}.lanes'
+            assert counted.get(key) == (lanes if traced else None), (
+                key, counted.get(key), lanes)
+    present = [BASIC_NAMES[t] for t in layout.material_types
+               if t != MATERIAL_TYPE_OPENPBR]
+    assert present and all(seen[name] > 0 for name in present), seen
+    if case in ('glass_ball', 'one_weekend'):
+        assert len(present) == 3
+
+
+BASIC_SETS = {
+    'all': (),
+    'basic': (MATERIAL_TYPE_BASIC_DIFFUSE, MATERIAL_TYPE_BASIC_METAL,
+              MATERIAL_TYPE_BASIC_TRANSLUCENT),
+    'metal_glass': (MATERIAL_TYPE_BASIC_METAL, MATERIAL_TYPE_BASIC_TRANSLUCENT),
+    'diffuse': (MATERIAL_TYPE_BASIC_DIFFUSE,),
+    'metal': (MATERIAL_TYPE_BASIC_METAL,),
+    'glass': (MATERIAL_TYPE_BASIC_TRANSLUCENT,),
+    'metal_openpbr': (MATERIAL_TYPE_BASIC_METAL, MATERIAL_TYPE_OPENPBR),
+}
+
+
+@pytest.mark.parametrize('where', ['every_lane', 'some_lanes'])
+@pytest.mark.parametrize('types', sorted(BASIC_SETS))
+def test_basic_sample_kernel_matches_plain_version_on_random_lanes(
+        cuda, types, where):
+    """`dispatch.sample_bsdf` on the card (the OpenPBR walk where the set
+    holds it, then the basic kernel) against sample_bsdf_plain on the card
+    on 65,536 made-up lanes of all four types, bit for bit in every output
+    of every lane that samples: rough and smooth metal and glass, entering
+    and leaving glass, types outside the set (they take the set's first
+    model), with a mask and without; with tracing off and on, and while
+    tracing the lane counters equal the lanes of each model."""
+    from path_tracer_tpu_torch.core.sampling import Rng
+    from path_tracer_tpu_torch.models import dispatch
+
+    type_set = BASIC_SETS[types]
+    n = 65536
+    ctx, view, _ = basic_lanes(n, 70 + len(type_set), cuda)
+    mask = (None if where == 'every_lane' else
+            torch.from_numpy(np.random.default_rng(71).random(n) < 0.6)
+            .to(cuda))
+    models = basic_models(ctx['type'], type_set, mask)
+    for traced in (False, True):
+        rng = Rng.seed(torch.arange(n, device=cuda), 9)
+        start = rng.state.clone()
+        profiling.reset()
+        with profiling.tracing() if traced else contextlib.nullcontext():
+            got = dispatch.sample_bsdf(ctx, view, rng, type_set, mask)
+            counted = profiling.counters()
+        assert counted['kernel.basic_sample'] == 1
+        want = basic_plain(ctx, view, start, type_set, mask)
+        assert_basic_sample(got, want, models)
+        if mask is not None and MATERIAL_TYPE_OPENPBR not in \
+                dispatch.active_types(type_set):
+            assert not bool(got[3][~mask].any())
+            assert not bool(got[1][:, ~mask].any())
+        for m, name in enumerate(BASIC_NAMES):
+            key = f'pt.model.{name}.lanes'
+            lanes = int((models == m).sum())
+            assert counted.get(key) == (lanes if traced else None), key
+    act = dispatch.active_types(type_set)
+    for t in act:
+        if t != MATERIAL_TYPE_OPENPBR:
+            assert int((models == t).sum()) > n // 8
+    if MATERIAL_TYPE_BASIC_TRANSLUCENT in act:
+        glass = models == MATERIAL_TYPE_BASIC_TRANSLUCENT
+        smooth = ctx['roughness'] < 1e-3
+        for side in (view[2] >= 0, view[2] < 0):
+            assert int((glass & side & smooth).sum()) > 100
+            assert int((glass & side & ~smooth).sum()) > 100
+
+
+def test_basic_sample_on_the_main_path(cuda, monkeypatch):
+    """A render of the glass ball (no sky sampling, so nothing else
+    selects by type) launches the basic kernel once a round and never
+    selects by type on the card; so does a scene of one model (the blob's
+    metal); one round with tracing on runs at most 2 kernels inside
+    `pt.model.basic.sample` (the sample and the one-time zeroing of its
+    counters) and opens no per-model span of a basic model."""
+    import path_tracer_tpu_torch as tpkg
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.models import dispatch
+    from path_tracer_tpu_torch.ops.intersect import SceneLayout
+
+    def refuse(*args):
+        raise AssertionError('dispatch._select ran on the card sample path')
+
+    monkeypatch.setattr(dispatch, '_select', refuse)
+    profiling.reset()
+    img = tpkg.render_scene(glass_ball_scene(*_scene_modules()), 64, 32,
+                            spp_rounds=4, device=cuda)
+    assert launches('basic_sample') == 4
+    assert bool(torch.isfinite(img).all())
+    profiling.reset()
+    tpkg.render_scene(blob_scene(_scene_modules()[0])[0], 64, 32,
+                      spp_rounds=2, device=cuda)
+    assert launches('basic_sample') == 2
+
+    packed = tpkg.compile_scene(glass_ball_scene(*_scene_modules()),
+                                aspect_ratio=2.0, device=cuda)
+    layout = SceneLayout.from_packed(packed)
+    config = wavefront.RenderConfig(width=96, height=48)
+    state = wavefront.reset(packed, config, seed=7)
+    wavefront.render_round(packed, layout, config, state, 0.05)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof, \
+            profiling.tracing():
+        wavefront.render_round(packed, layout, config, state, 0.05)
+        torch.cuda.synchronize()
+        spans = {r[0] for r in profiling.records()}
+    assert dispatch.BASIC_SPAN in spans
+    assert not any(f'pt.model.{name}.sample' in spans for name in BASIC_NAMES)
+    events = prof.events()
+    ranges = [e.time_range for e in events
+              if e.name == dispatch.BASIC_SPAN and e.device_type ==
+              torch.autograd.DeviceType.CPU]
+    launched = [e.name for e in events if 'LaunchKernel' in e.name and any(
+        s.start <= e.time_range.start <= s.end for s in ranges)]
+    assert len(ranges) == 1
+    assert 1 <= len(launched) <= 2, launched
+
+
+def test_basic_sample_wrapper_rejects_bad_input_on_the_card(cuda):
+    """On the card too the wrapper checks every tensor before it launches:
+    a column on the CPU, of another dtype or lane count, a mask on the
+    CPU, outputs of another device."""
+    from path_tracer_tpu_torch.ops import basic_sample
+
+    ctx, view, u = basic_lanes(256, 72, cuda)
+    types = (MATERIAL_TYPE_BASIC_DIFFUSE, MATERIAL_TYPE_BASIC_METAL,
+             MATERIAL_TYPE_BASIC_TRANSLUCENT)
+    basic_sample.basic_sample(ctx, view, *u, types)
+    bad = (dict(ctx=dict(ctx, lam=ctx['lam'].cpu())),
+           dict(ctx=dict(ctx, roughness=ctx['roughness'].double())),
+           dict(ctx=dict(ctx, ior=ctx['ior'][:128])),
+           dict(view=view.T.contiguous().T),
+           dict(where=torch.ones(256, dtype=torch.bool)),
+           dict(out=[torch.empty(3, 256), torch.empty(4, 256),
+                     torch.empty(4, 256), torch.empty(256, dtype=torch.bool)]))
+    for fields in bad:
+        args = dict(ctx=ctx, view=view, where=None, out=None) | fields
+        with pytest.raises(ValueError):
+            basic_sample.basic_sample(args['ctx'], args['view'], *u, types,
+                                      where=args['where'], out=args['out'])
