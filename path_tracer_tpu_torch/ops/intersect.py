@@ -283,6 +283,16 @@ ANALYTIC_NODES = 'pt.trace.analytic.nodes'
 ANALYTIC_TESTS = 'pt.trace.analytic.tests'
 
 
+# Counters of the mesh traversal in 'inst' mode (utils/profiling.py),
+# kept while tracing is on: BVH8 node rows popped, triangles tested and
+# instances entered, summed over rays on the device. Each is a row of
+# inst_trace's per-ray counters: while tracing, `trace` asks for them,
+# which on the card launches the counting instantiation of
+# csrc/trace_inst.cu; with tracing off it launches the timed one.
+KERNEL_COUNTERS = {'pt.trace.kernel.rows': 0, 'pt.trace.kernel.tests': 4,
+                   'pt.trace.kernel.instances': 3}
+
+
 # Lanes of the attribute resolve by what they hit (utils/profiling.py),
 # kept while tracing is on: on the card csrc/hit_attributes.cu adds them
 # itself, and the plain version counts them on the host's side.
@@ -829,10 +839,15 @@ def trace(packed, layout: SceneLayout, origin, direction,
         if layout.instance_slots and use_packet in (None, True):
             with profiling.span('pt.trace.kernel'):
                 if layout.packet_mode == 'inst':
+                    counting = profiling.enabled()
                     out = trace_inst.inst_trace(
                         packed.inst_nodes, packed.inst_tris, packed.inst_rows,
                         origin, direction, hit['time'],
-                        tlas_rows=layout.tlas_rows)
+                        tlas_rows=layout.tlas_rows, stats=counting)
+                    if counting:
+                        *out, per_ray = out
+                        for name, row in KERNEL_COUNTERS.items():
+                            profiling.count(name, per_ray[row])
                 else:
                     out = trace_packet.wide_trace5(
                         packed.wide_nodes_g, packed.wide_tris_g, origin,

@@ -350,7 +350,8 @@ def _pack_meshes(scene: Scene):
 
     for mesh in scene.meshes:
         if mesh.bvh is None:
-            mesh.bvh = bvh_mod.build_bvh_cached(mesh.positions[mesh.faces])
+            with log.timer('compile.bvh', tables='portable', faces=len(mesh.faces)):
+                mesh.bvh = bvh_mod.build_bvh_cached(mesh.positions[mesh.faces])
         bvh = mesh.bvh
         faces = mesh.faces[bvh.face_order]
 
@@ -661,9 +662,12 @@ def _build_inst_tables(instances, inst_bounds, width=None, leaf_max=None):
         nrm = np.asarray(mesh.normals, np.float32)[faces]
         uv = np.asarray(mesh.uvs, np.float32)[faces]
         shp = np.zeros(len(faces), np.float32)
-        wide = bvh8.build_wide_bvh(tri, nrm, uv, shp, spatial=True,
-                                   width=width, leaf_max=leaf_max)
-        mesh_tables[id(mesh)] = bvh8.pack_wide_geom(wide, tri, nrm, uv, shp)
+        # The mesh's BLAS: the SBVH build, its collapse to BVH8 rows and
+        # the leaf rows.
+        with log.timer('compile.bvh', tables='inst', faces=len(faces)):
+            wide = bvh8.build_wide_bvh(tri, nrm, uv, shp, spatial=True,
+                                       width=width, leaf_max=leaf_max)
+            mesh_tables[id(mesh)] = bvh8.pack_wide_geom(wide, tri, nrm, uv, shp)
         mesh._wide_table_cache = (key, mesh_tables[id(mesh)])
         order.append(id(mesh))
 

@@ -1231,6 +1231,63 @@ def test_shape_trace_on_the_main_path(cuda):
     assert got[intersect.ANALYTIC_TESTS] == int(counts[1].sum())
 
 
+def test_inst_trace_counters_on_the_main_path(cuda):
+    """`trace` in 'inst' mode on the instanced blob scene: with tracing
+    off it launches the timed instantiation of csrc/trace_inst.cu (no
+    counters) and counts nothing; with tracing on the counting one, and
+    the device counters equal the sums of an inst_trace(stats=True)
+    launch on the same rays."""
+    import re
+
+    import path_tracer_tpu_torch.scene.model as model
+    from path_tracer_tpu_torch.core.constants import HIT_TIME_LIMIT
+    from path_tracer_tpu_torch.ops import intersect, trace_inst
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+
+    scene, rng = blob_scene(model)
+    packed = compile_scene(scene, device=cuda)
+    layout = intersect.SceneLayout.from_packed(packed)
+    assert layout.packet_mode == 'inst'
+    o, d, _ = _random_rays(rng, 8192, cuda)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+
+    def instantiations(traced):
+        profiling.reset()
+        with torch.profiler.profile(activities=activities) as prof, \
+                (profiling.tracing() if traced else contextlib.nullcontext()):
+            hit = intersect.trace(packed, layout, o, d)
+            torch.cuda.synchronize()
+            got = profiling.counters()
+        names = [re.search(r'inst_trace_kernel<\d+, (true|false)>', e.name)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and 'inst_trace_kernel' in e.name]
+        assert got['kernel.inst_trace'] == 1
+        return [m.group(1) for m in names], got, hit
+
+    timed, got, hit_off = instantiations(False)
+    assert timed == ['false']
+    assert not any(name in got for name in intersect.KERNEL_COUNTERS)
+    counting, got, hit_on = instantiations(True)
+    assert counting == ['true']
+    for key in ('time', 'shape', 'primitive', 'normal'):
+        assert torch.equal(hit_on[key], hit_off[key]), key
+
+    hit = intersect.intersect_analytic(
+        packed, layout, o, d, intersect.make_hit(o.shape[1], HIT_TIME_LIMIT, cuda))
+    *_, per_ray = trace_inst.inst_trace(
+        packed.inst_nodes, packed.inst_tris, packed.inst_rows, o, d,
+        hit['time'], layout.tlas_rows, stats=True)
+    want = {name: int(per_ray[row].sum())
+            for name, row in intersect.KERNEL_COUNTERS.items()}
+    assert {name: got[name] for name in want} == want
+    hits = int((hit_on['shape'] != SHAPE_INDEX_NONE).sum())
+    assert hits > 30
+    assert want['pt.trace.kernel.tests'] >= hits
+    assert want['pt.trace.kernel.instances'] >= hits
+
+
 def mixed_scene():
     """test_torch_trace_shapes.shapes_scene's planes, spheres and cubes
     (60 shapes, ties included) beside three instances of a random
