@@ -91,6 +91,13 @@ hand-written kernels against their plain PyTorch versions:
      Cornell box at 2880x2880, bit for bit in every output of every lane
      that samples, with the lanes of each model, the layer's least bytes
      and what the kernel moves, and its `ptxas` registers and spills;
+     then `scatter_tail`: the kernel of scatter's own code after the BSDF
+     sample, which replaces the plain tail on the card, and that tail in
+     turns on the third-round lanes of the Cornell box at 2880x2880 and
+     of spd_tetra at 1440x1440 with 4 waves, bit for bit in every output
+     and the random state, with the lanes of each branch, the layer's
+     least bytes and what the kernel moves, and its `ptxas` registers and
+     spills;
  14. bench config 6 (`make_terrain_scene(side=900)`, 1.62M unique
      triangles) compiled once for 16:9: seconds, triangles, the bytes of
      every table;
@@ -1192,6 +1199,137 @@ def medium_event_phase(dev, card, ptxas_records, seed=2 ** 31 + 23):
         torch.cuda.empty_cache()
         if not all(equal.values()):
             raise RuntimeError('the medium-event kernel disagrees with the '
+                               f'plain version in {name}')
+    return records
+
+
+TAIL_CELLS = ('cornell_box.offline_2880x2880', 'spd_tetra.offline_1440x1440_w4')
+
+
+def tail_bytes(bins, lanes, flags):
+    """(the layer's least bytes, what the kernel moves) for one launch of
+    the scatter-tail kernel over `lanes` lanes, `bins` of which hit the
+    sky, scatter in a volume, scatter off a surface and pass through one,
+    under the ScatterTailFlags `flags`. The least is 23 words a lane
+    (benchmark/metrics/scatter_tail_roofline.py). What it moves: every
+    lane reads 18 words and the branch masks its flags hold, and writes
+    the new throughput, probability, sample, origin, direction, the alive
+    byte and the random state (and the active shapes where transmissive);
+    a sky lane reads its origin, a volume lane the volumetric branch (14
+    words), a ghost its position, a surface lane its position, frame,
+    shape, priority and integrand (every surface lane counted as a real
+    interface), and with OpenPBR its type; the sky's texels and the
+    emission columns of emitting lanes are left out."""
+    from path_tracer_tpu_torch.ops import scatter_tail
+
+    medium = bool(flags & scatter_tail.MEDIUM)
+    transmissive = bool(flags & scatter_tail.TRANSMISSIVE)
+    every = (18 * 4 + (2 if medium else 0)
+             + (1 if flags & scatter_tail.OPACITY else 0)
+             + (16 if transmissive else 0)
+             + 16 + 16 + 12 + 12 + 12 + 1 + 8 + (16 if transmissive else 0))
+    surface = (12 + 36 + 4 + (4 if medium else 0 if transmissive else 16)
+               + 12 + 16 + 16 + 1
+               + (4 if flags & scatter_tail.OPENPBR else 0))
+    moved = (lanes * every + bins['sky'] * 12 + bins['volume'] * 14 * 4
+             + bins['ghost'] * 12 + bins['surface'] * surface)
+    return lanes * 23 * 4, moved
+
+
+def scatter_tail_phase(dev, card, ptxas_records, seed=2 ** 31 + 37):
+    """Phase `scatter_tail`: the scatter-tail kernel (csrc/scatter_tail.cu)
+    against the plain version it replaces
+    (integrator/scatter.py::scatter_tail_plain), both on the card, on every
+    lane of two benchmark cells' states in their third round: the Cornell
+    box at 2880x2880 (8,294,400 lanes: a medium, OpenPBR emission,
+    bookkeeping, the default sky) and spd_tetra at 1440x1440 with 4 waves
+    (8,294,400: medium-free, most lanes on the sky). The arguments `scatter`
+    hands the tail are captured, then both run on them, bit for bit in
+    every output and the random state (a difference fails the run), timed
+    in turns and the kernel alone cold (after 384 MiB written), beside the
+    least bytes and what the kernel moves over HBM bandwidth and `ptxas`'s
+    registers and spills. Returns the records by cell."""
+    import types
+
+    import torch
+
+    from benchmark.harness.cell import load_cell
+    from path_tracer_tpu_torch.core import constants
+    from path_tracer_tpu_torch.integrator import scatter, wavefront
+    from path_tracer_tpu_torch.ops import intersect, scatter_tail
+    from path_tracer_tpu_torch.scene import model
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+    from test_torch_cuda import (
+        capture_tail, same_bits, tail_bin_counts, tail_outputs)
+
+    api = types.SimpleNamespace(**{
+        k: v for m in (constants, model) for k, v in vars(m).items()
+        if not k.startswith('_')})
+    regs = [r for r in ptxas_records if r['source'] == 'scatter_tail.cu']
+    records = {}
+    for name in TAIL_CELLS:
+        cell = load_cell(name)
+        width, height = cell.traffic['width'], cell.traffic['height']
+        packed = compile_scene(cell.maker.make_scene(api, cell.config),
+                               aspect_ratio=width / height, device=dev)
+        layout = intersect.SceneLayout.from_packed(packed)
+        config = wavefront.RenderConfig(
+            width=width, height=height, waves=cell.traffic.get('waves', 1),
+            flags=(constants.RENDER_FLAG_ACCUMULATE
+                   | constants.RENDER_FLAG_SAMPLE_JITTER),
+            camera_model=packed.host_camera_models[0])
+        term = cell.traffic['termination_probability']
+        state = wavefront.reset(packed, config, seed)
+        wavefront.render(packed, config, 2, state=state, layout=layout,
+                         termination_probability=term)
+        args = capture_tail(packed, layout, config, state, term)
+        del state
+        lanes = {}
+        launch = scatter_tail.scatter_tail
+        scatter_tail.scatter_tail = (
+            lambda p, lay, given, t, **k: lanes.update(given) or launch(
+                p, lay, given, t, **k))
+        try:
+            got = tail_outputs(scatter.scatter_tail, args)
+        finally:
+            scatter_tail.scatter_tail = launch
+        want = tail_outputs(scatter.scatter_tail_plain, args)
+        equal = {k: bool(same_bits(got[k], want[k])) for k in want}
+        bins = tail_bin_counts(args)
+        del got, want
+
+        def kernel():
+            return launch(packed, layout, lanes, term)
+
+        def plain():
+            return tail_outputs(scatter.scatter_tail_plain, args)
+
+        n = lanes['origin'].shape[1]
+        ms = time_in_turns({'kernel': kernel, 'plain': plain}, TIMING_REPS)
+        flush_buffer = torch.empty(96 * 2 ** 20, dtype=torch.float32,
+                                   device=dev)
+        ms_cold = cuda_ms(kernel, flush=flush_buffer.zero_)
+        del flush_buffer
+        least, moved = tail_bytes(bins, n, scatter_tail.layout_flags(layout))
+        least_ms = 1e3 * least / PEAK_BYTES_S
+        moved_ms = 1e3 * moved / PEAK_BYTES_S
+        rec = records[name] = dict(
+            nvidia_smi=card, cell=name, lanes=n, bins=bins, equal=equal,
+            flags=scatter_tail.layout_flags(layout),
+            kernel_ms=ms['kernel'], kernel_ms_cold=ms_cold,
+            plain_ms=ms['plain'], speedup=ms['plain'] / ms['kernel'],
+            least_bytes=least, least_bound_ms=least_ms, moved_bytes=moved,
+            moved_bound_ms=moved_ms, bound_by='bytes',
+            roofline_pct=100.0 * least_ms / ms['kernel'],
+            moved_pct=100.0 * moved_ms / ms['kernel'],
+            registers=[r['registers'] for r in regs],
+            spill_bytes=[r['spill_store_bytes'] + r['spill_load_bytes']
+                         for r in regs])
+        log('scatter_tail', **rec)
+        del packed, lanes, args, kernel, plain
+        torch.cuda.empty_cache()
+        if not all(equal.values()):
+            raise RuntimeError('the scatter-tail kernel disagrees with the '
                                f'plain version in {name}')
     return records
 
@@ -2443,6 +2581,11 @@ def main():
     torch.cuda.empty_cache()
     lap('basic_sample')
 
+    # -- 13g. the scatter-tail kernel on two benchmark cells' lanes ----------
+    records['scatter_tail'] = scatter_tail_phase(dev, card, ptxas_records)
+    torch.cuda.empty_cache()
+    lap('scatter_tail')
+
     # -- 14-17. bench config 6 at 1920x1080 with 1 and 4 waves ----------------
     torch.cuda.empty_cache()
     terrain, terrain_layout, inst_bytes = terrain_compile(dev, WIDTH, HEIGHT)
@@ -2508,7 +2651,8 @@ def main():
         shape_trace=('shape_trace.cu', None),
         hit_attributes=('hit_attributes.cu', None),
         medium_event=('medium_event.cu', None),
-        basic_sample=('basic_sample.cu', None))
+        basic_sample=('basic_sample.cu', None),
+        scatter_tail=('scatter_tail.cu', None))
     print(json.dumps({'kernels': [dict(
         name=name, route='cuda',
         source='path_tracer_tpu_torch/csrc/' + sources[name][0],

@@ -50,6 +50,18 @@ class Rng:
         to nearest even, as JAX's astype does."""
         return self.next_u32().to(torch.float32) * (1.0 / 4294967296.0)
 
+    def skip(self, draws):
+        """Step the state past `draws` draws whose values nobody reads, in
+        one affine step: s -> (a^k s + c (a^(k-1) + ... + a + 1)) mod 2^32.
+        The multiplier is taken as a signed value below 2^31 in magnitude,
+        so that s times it plus the increment stays inside int64."""
+        mul, add = 1, 0
+        for _ in range(draws):
+            mul, add = (mul * 747796405) & _MASK, (add * 747796405 + 2891336453) & _MASK
+        if mul >= 1 << 31:
+            mul -= 1 << 32
+        self.state = (self.state * mul + add) & _MASK
+
 
 def compute_tangent_vector(normal):
     """Arbitrary tangent for a (3, N) normal (common.glsl.inc:113-117)."""

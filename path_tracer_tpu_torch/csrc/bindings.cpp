@@ -13,6 +13,7 @@
 #include "hit_attributes.h"
 #include "medium_event.h"
 #include "openpbr_walk.h"
+#include "scatter_tail.h"
 
 extern "C" int inst_trace_launch(const float* nodes, const float* tris,
                                  const float* inst_rows, const float* origin,
@@ -327,6 +328,85 @@ void basic_sample(const std::vector<torch::Tensor>& in,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// Queues csrc/scatter_tail.cu: `in` holds the tensors of
+// ops/scatter_tail.py's LANE_INPUTS and TABLES in their order (the fields of
+// ScatterTailArgs; one the layout's flags do not read is an empty tensor),
+// `out` those of KERNEL_OUTPUTS (active_shapes empty without
+// TAIL_TRANSMISSIVE), `flags` the ScatterTailFlags bits, `atlas_mode` and
+// `atlas_size` the sky's table and layer edge, `default_sky` the four
+// numbers of the sky's spectrum without a texture, `stats` empty or the
+// kernel's four int64 counters. Raises if the launch was refused.
+void scatter_tail(const std::vector<torch::Tensor>& in,
+                  const std::vector<torch::Tensor>& out, int64_t flags,
+                  int64_t atlas_mode, int64_t atlas_size,
+                  double termination_probability,
+                  const std::vector<double>& default_sky,
+                  torch::Tensor& stats, int64_t stream) {
+  TORCH_CHECK(in.size() == 35 && out.size() == 8 && default_sky.size() == 4,
+              "scatter_tail takes 35 inputs, 8 outputs and 4 sky numbers");
+  auto ptr = [](const torch::Tensor& t) {
+    return t.numel() ? t.data_ptr() : nullptr;
+  };
+  auto f32 = [&](int k) { return static_cast<const float*>(ptr(in[k])); };
+  auto i32 = [&](int k) { return static_cast<const int32_t*>(ptr(in[k])); };
+  auto b8 = [&](int k) { return static_cast<const bool*>(ptr(in[k])); };
+  ScatterTailArgs a;
+  a.n = in[0].numel();
+  a.flags = static_cast<int>(flags);
+  a.atlas_mode = static_cast<int>(atlas_mode);
+  a.atlas_size = static_cast<int>(atlas_size);
+  a.termination_probability = static_cast<float>(termination_probability);
+  for (int k = 0; k < 4; ++k)
+    a.default_sky[k] = static_cast<float>(default_sky[k]);
+  a.lambda0 = f32(0);
+  a.throughput = f32(1);
+  a.probability = f32(2);
+  a.sample = f32(3);
+  a.active_shapes = i32(4);
+  a.origin = f32(5);
+  a.direction = f32(6);
+  a.rng_state = static_cast<const int64_t*>(ptr(in[7]));
+  a.time = f32(8);
+  a.shape = i32(9);
+  a.position = f32(10);
+  a.normal = f32(11);
+  a.tangent = f32(12);
+  a.bitangent = f32(13);
+  a.scattered = f32(14);
+  a.s_throughput = f32(15);
+  a.s_probability = f32(16);
+  a.s_valid = b8(17);
+  a.priority = i32(18);
+  a.vol_scatter = b8(19);
+  a.sky_hit = b8(20);
+  a.vol_origin = f32(21);
+  a.vol_dir = f32(22);
+  a.vol_throughput = f32(23);
+  a.vol_probability = f32(24);
+  a.ghost = b8(25);
+  a.type = i32(26);
+  a.emission_reflectance = f32(27);
+  a.emission_luminance = f32(28);
+  a.skybox_brightness = f32(29);
+  a.skybox_texture_index = i32(30);
+  a.texture_meta = f32(31);
+  a.atlas = f32(32);
+  a.atlas_quad = f32(33);
+  a.atlas_pair = static_cast<const uint16_t*>(ptr(in[34]));
+  a.throughput_out = out[0].data_ptr<float>();
+  a.probability_out = out[1].data_ptr<float>();
+  a.sample_out = out[2].data_ptr<float>();
+  a.active_shapes_out =
+      out[3].numel() ? out[3].data_ptr<int32_t>() : nullptr;
+  a.origin_out = out[4].data_ptr<float>();
+  a.direction_out = out[5].data_ptr<float>();
+  a.alive = out[6].data_ptr<bool>();
+  a.rng_state_out = out[7].data_ptr<int64_t>();
+  a.stats = stats.numel() ? stats.data_ptr<int64_t>() : nullptr;
+  scatter_tail_launch(&a, reinterpret_cast<void*>(stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -346,6 +426,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("basic_sample", &basic_sample,
         "The basic models' BSDF samples, one thread a lane "
         "(csrc/basic_sample.cu)");
+  m.def("scatter_tail", &scatter_tail,
+        "Scatter's own code after the BSDF sample, one thread a lane "
+        "(csrc/scatter_tail.cu)");
   m.def("openpbr_walk", &openpbr_walk,
         "The OpenPBR BSDF sample, one thread a lane (csrc/openpbr_walk.cu)");
 }

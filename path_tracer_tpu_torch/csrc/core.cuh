@@ -1,6 +1,7 @@
 // The core/ helpers that the OpenPBR layer walk (openpbr_walk.cu), the
-// medium event (medium_event.cu) and the basic models' samples
-// (basic_sample.cu) call, for one lane: core/vec.py
+// medium event (medium_event.cu), the basic models' samples
+// (basic_sample.cu) and scatter's tail (scatter_tail.cu) call, for one
+// lane: core/vec.py
 // (normalize, safe_normalize, max4), core/sampling.py (the PCG stream of
 // Rng, compute_tangent_vector, coordinate_frame, sample_direction_hg,
 // ggx_roughness_alpha, ggx_smith_g1, ggx_visible_normal,

@@ -17,6 +17,12 @@ without `has_skybox_sampling` the light sample. The RNG draws of a
 dropped branch are still consumed, so each lane's random stream matches
 the JAX package's draw for draw, and the frame is bitwise the same as
 the general path's.
+
+On the card the medium event, the basic models' BSDF samples and the
+round's rest after the sample (`scatter_tail`: the sky, the emission,
+roulette, the new ray and the merge) are each one hand-written kernel;
+on the CPU their plain versions run (`medium_event_plain`,
+`dispatch.sample_bsdf_plain`, `scatter_tail_plain`).
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from ..core.vec import dot, max4, normalize, sum4, vec3
 from ..models import dispatch
 from ..models.common import fetch_ctx, fetch_medium_ctx, sample_texture
 from ..ops import medium_event as medium_event_kernel
+from ..ops import scatter_tail as scatter_tail_kernel
 from ..utils import profiling
 
 # The lanes of a medium event by what they are in: no active shape (the
@@ -54,6 +61,13 @@ from ..utils import profiling
 # whatever the medium (a device count while tracing).
 MEDIUM_LANES = 'pt.scatter.medium.lanes'
 MEDIUM_BINS = ('ambient', 'interior', 'volume')
+# The span of the round's rest after the BSDF sample, and its lanes by
+# branch: those that hit the sky, scatter in a volume, scatter off a
+# surface, or pass through one (a ghost); they partition the round's lanes
+# (a device count while tracing).
+TAIL_SPAN = 'pt.scatter.tail'
+TAIL_LANES = 'pt.scatter.tail.lanes'
+TAIL_BINS = ('sky', 'volume', 'surface', 'ghost')
 
 
 def fetch_medium(packed, shape_index, lam, types=()):
@@ -219,13 +233,19 @@ def _sample_surface_integrand(packed, ctx, hit, view, rng: Rng, types,
     between BSDF importance sampling and vMF skybox light sampling.
     view: (3, N) toward the viewer in tangent space. Returns (scattered
     (3, N), throughput (4, N), probability (4, N), valid (N,)).
-    Without sky sampling the light-branch draws are still consumed.
+    Without sky sampling the light branch's draws are still consumed, in one
+    step of the stream, and its arithmetic is skipped.
     `where`: the lanes whose result is used (dispatch.sample_bsdf)."""
-    if sky_sampling:
-        has_dirac = dispatch.has_dirac_bsdf(ctx, types)
-        light_probability = torch.where(
-            has_dirac, torch.zeros_like(view[0]),
-            packed.skybox_sampling_probability.expand_as(view[0]))
+    if not sky_sampling:
+        # The light branch's three draws (the choice and the vMF sample's
+        # two), whose values nobody reads: one step of the stream.
+        rng.skip(3)
+        with profiling.span('pt.scatter.bsdf_sample'):
+            return dispatch.sample_bsdf(ctx, view, rng, types, where)
+    has_dirac = dispatch.has_dirac_bsdf(ctx, types)
+    light_probability = torch.where(
+        has_dirac, torch.zeros_like(view[0]),
+        packed.skybox_sampling_probability.expand_as(view[0]))
     mean = packed.skybox_mean_direction
     mean_local = vec3(
         mean[0] * hit['tangent'][0] + mean[1] * hit['tangent'][1] + mean[2] * hit['tangent'][2],
@@ -238,8 +258,6 @@ def _sample_surface_integrand(packed, ctx, hit, view, rng: Rng, types,
     with profiling.span('pt.scatter.bsdf_sample'):
         bsdf_dir, bsdf_thr, bsdf_pdf, bsdf_ok = dispatch.sample_bsdf(
             ctx, view, rng, types, where)
-    if not sky_sampling:
-        return bsdf_dir, bsdf_thr, bsdf_pdf, bsdf_ok
     with profiling.span('pt.scatter.bsdf_eval'):
         eval_thr, eval_pdf, eval_ok = dispatch.evaluate_bsdf(ctx, view,
                                                              light_dir, types)
@@ -261,18 +279,13 @@ def scatter(packed, state, ray_origin, ray_direction, hit, rng: Rng,
 
     ray_origin/ray_direction: (3, N). Returns (new_state, new_origin,
     new_direction, alive (N,)); dead lanes carry their final `sample`.
-    `layout` gives the static scene flags.
+    `layout` gives the static scene flags. The medium event, the material
+    fetch and the BSDF sample come first; the rest is `scatter_tail`.
     """
     with profiling.span('pt.scatter'):
         types = layout.material_types
-        term = torch.tensor(termination_probability, dtype=torch.float32,
-                            device=ray_origin.device)
         lam = hero_wavelength_cluster(state['lambda0'])  # (4, N)
-
-        active_shapes = state['active_shapes']           # (LIMIT, N)
-        probability = state['probability']
-        sample = state['sample']                         # (3, N)
-        n_lanes = active_shapes.shape[1]
+        n_lanes = lam.shape[1]
 
         # The medium event: the lane's medium, the absorption, the free
         # flight at the primary wavelength, the volumetric branch and the
@@ -281,48 +294,27 @@ def scatter(packed, state, ray_origin, ray_direction, hit, rng: Rng,
         # it: the priority is the raw shape index, the event time the
         # horizon, so no lane scatters in a volume (the JAX package's
         # vol_scatter is a constant False there, which its compiler folds
-        # away, as the merges below do), and a lane's event is the skybox
-        # where it hit nothing. The three draws are still consumed.
-        scene_has_medium = layout.scene_has_medium
-        if scene_has_medium:
+        # away, as the merges of the tail do), and a lane's event is the
+        # skybox where it hit nothing. The three draws are still consumed.
+        if layout.scene_has_medium:
             with profiling.span('pt.scatter.medium'):
-                event = medium_event(packed, types, active_shapes, lam,
-                                     state['throughput'], probability, hit,
-                                     ray_origin, ray_direction, rng)
-            priority = event['priority']
-            throughput = event['throughput']
-            medium_event_mask = event['medium_event']
-            vol_scatter = event['vol_scatter']
-            sky_hit = event['sky_hit']
+                event = medium_event(packed, types, state['active_shapes'],
+                                     lam, state['throughput'],
+                                     state['probability'], hit, ray_origin,
+                                     ray_direction, rng)
+            surface_event = ~event['medium_event']
+            # Exterior IOR on the other side of the interface.
+            exterior_ior = event['exterior_ior']
         else:
-            priority = torch.amin(active_shapes, dim=0)
-            throughput = state['throughput']
-            for _ in range(3):
-                rng.uniform()
-            medium_event_mask = sky_hit = hit['time'] >= HIT_TIME_LIMIT
-        surface_event = ~medium_event_mask
+            event = None
+            rng.skip(3)
+            surface_event = ~(hit['time'] >= HIT_TIME_LIMIT)
+            exterior_ior = torch.ones((4, n_lanes), device=lam.device)
 
-        # Skybox emission (basic_scatter.glsl:165-172).
-        emission = sample_skybox_radiance(packed, ray_direction, lam,
-                                          layout.has_skybox_texture,
-                                          layout.atlas_size,
-                                          layout.texture_filter_modes,
-                                          layout.atlas_quad_fit)
-        cluster_pdf = torch.clamp(sum4(probability), min=1e-20)
-        observer = sample_standard_observer(lam)  # (3, 4, N)
-        sky_sample = sample + _observe(observer, emission * throughput) / cluster_pdf
-
-        # Surface interaction (basic_scatter.glsl:177-309).
+        # The view toward the viewer in tangent space.
         view = -vec3(dot(ray_direction, hit['tangent']),
                      dot(ray_direction, hit['bitangent']),
                      dot(ray_direction, hit['normal']))
-        hit_exterior = view[2] > 0.0
-        shape_priority = hit['shape']
-        is_real = torch.where(hit_exterior, priority > shape_priority,
-                              priority == shape_priority)
-        # Exterior IOR on the other side of the interface.
-        exterior_ior = (event['exterior_ior'] if scene_has_medium
-                        else torch.ones((4, n_lanes), device=view.device))
 
         with profiling.span('pt.scatter.material'):
             ctx = fetch_ctx(packed, hit['material'], lam, hit['uv'], exterior_ior,
@@ -335,100 +327,240 @@ def scatter(packed, state, ray_origin, ray_direction, hit, rng: Rng,
         # Stochastic transparency: with probability (1 - opacity) the ray
         # passes straight through the surface, with no BSDF event, emission,
         # medium bookkeeping or roulette.
+        ghost = None
         if layout.has_opacity:
             opacity = packed.materials.opacity[hit['material']]
             ghost = surface_event & (rng.uniform() >= opacity)
-        else:
-            ghost = torch.zeros_like(sky_hit)
-
-        # Surface emission (OpenPBR area lights) on real exterior hits,
-        # before the BSDF extends the path.
-        emission_spec = dispatch.surface_emission(ctx, types)
-        emissive_hit = surface_event & is_real & hit_exterior & ~ghost
-        emit_contrib = _observe(observer, emission_spec * throughput) / cluster_pdf
-        sample = torch.where(emissive_hit, sample + emit_contrib, sample)
 
         # Only the surface events use the sample.
-        scattered, s_throughput, s_probability, s_valid = _sample_surface_integrand(
+        integrand = _sample_surface_integrand(
             packed, ctx, hit, view, rng, types,
             sky_sampling=layout.has_skybox_sampling, where=surface_event)
 
-        scale = 1.0 / torch.clamp(max4(s_probability), min=EPSILON)
-        surf_throughput = torch.where(is_real, throughput * s_throughput * scale,
-                                      throughput)
-        surf_probability = torch.where(is_real, probability * s_probability * scale,
-                                       probability)
-        in_dir = torch.where(is_real, scattered, -view)
-        surf_valid = torch.where(is_real, s_valid, torch.ones_like(s_valid))
+        with profiling.span(TAIL_SPAN):
+            return scatter_tail(packed, layout, state, ray_origin,
+                                ray_direction, hit, event, lam, view, ctx,
+                                ghost, integrand, rng, termination_probability)
 
-        # Active-shape list bookkeeping on boundary crossings
-        # (basic_scatter.glsl:266-292). Where no material of the scene can
-        # refract (not has_transmissive) nothing is ever inserted or removed,
-        # so the block is dropped. The first free slot and the first match
-        # are the smallest slot index under the mask; LIMIT where there is
-        # none, which equals no slot (a full list takes no insert).
-        if not layout.has_transmissive:
-            new_active = active_shapes
-        else:
-            crossing = in_dir[2] * view[2] < 0.0
-            entering = crossing & hit_exterior & surface_event
-            leaving = crossing & ~hit_exterior & surface_event
 
-            slots = torch.arange(ACTIVE_SHAPE_LIMIT, dtype=torch.int32,
-                                 device=view.device)[:, None]
-            first_none = torch.amin(torch.where(active_shapes == SHAPE_INDEX_NONE,
-                                                slots, ACTIVE_SHAPE_LIMIT), dim=0)
-            new_active = torch.where(entering & (slots == first_none),
-                                     hit['shape'], active_shapes)
-
-            first_match = torch.amin(torch.where(new_active == hit['shape'], slots,
-                                                 ACTIVE_SHAPE_LIMIT), dim=0)
-            new_active = torch.where(leaving & (slots == first_match),
-                                     SHAPE_INDEX_NONE, new_active)
-            new_active = torch.where(surface_event & ~ghost, new_active,
-                                     active_shapes)
-
-        # Russian roulette (basic_scatter.glsl:294-298).
-        u_rr = rng.uniform()
-        rr_survive = u_rr >= term
-        surf_probability = surf_probability * (1.0 - term)
-
-        surf_dir = normalize(in_dir[0] * hit['tangent'] + in_dir[1] * hit['bitangent']
-                             + in_dir[2] * hit['normal'])
-        # Self-intersection offset scaled with the hit distance.
-        surf_eps = torch.clamp(1e-4 * hit['time'], min=1e-3)
-        surf_origin = hit['position'] + surf_eps * surf_dir
-
-        # Merge the three branches.
-        def merge(vol, sky, surf):
-            out = torch.where(sky_hit, sky, surf)
-            return (torch.where(vol_scatter, event[vol], out)
-                    if scene_has_medium else out)
-
-        new_throughput = merge('vol_throughput', throughput, surf_throughput)
-        new_probability = merge('vol_probability', torch.zeros_like(probability),
-                                surf_probability)
-        new_sample = torch.where(sky_hit, sky_sample, sample)
-        new_origin = merge('vol_origin', ray_origin, surf_origin)
-        new_direction = merge('vol_dir', ray_direction, surf_dir)
-
-        if layout.has_opacity:
-            new_direction = torch.where(ghost, ray_direction, new_direction)
-            new_origin = torch.where(ghost, hit['position'] + surf_eps * ray_direction,
-                                     new_origin)
-            new_throughput = torch.where(ghost, throughput, new_throughput)
-            new_probability = torch.where(ghost, probability, new_probability)
-
-        alive = max4(new_probability) > EPSILON
-        alive &= torch.where(surface_event & ~ghost, surf_valid & rr_survive,
-                             torch.ones_like(alive))
-        alive &= ~sky_hit
-
+def scatter_tail(packed, layout, state, ray_origin, ray_direction, hit, event,
+                 lam, view, ctx, ghost, integrand, rng: Rng,
+                 termination_probability):
+    """The rest of a scatter round after the BSDF sample, as
+    `scatter_tail_plain` computes it and with its draw from `rng`: on a
+    CUDA device one launch of csrc/scatter_tail.cu (ops/scatter_tail.py),
+    which adds the TAIL_LANES counter itself while tracing is on; on the
+    CPU the plain version."""
+    dev = ray_origin.device
+    if dev.type == 'cuda':
+        out = scatter_tail_kernel.scatter_tail(
+            packed, layout,
+            tail_lanes(state, ray_origin, ray_direction, hit, event, ctx,
+                       ghost, integrand, rng),
+            termination_probability,
+            stats=profiling.kernel_counts(TAIL_LANES, dev, bins=TAIL_BINS))
+        rng.state = out['rng_state']
         new_state = dict(
             lambda0=state['lambda0'],
-            throughput=new_throughput,
-            probability=new_probability,
-            sample=new_sample,
-            active_shapes=new_active,
+            throughput=out['throughput'],
+            probability=out['probability'],
+            sample=out['sample'],
+            active_shapes=out.get('active_shapes', state['active_shapes']),
         )
-        return new_state, new_origin, new_direction, alive
+        return new_state, out['origin'], out['direction'], out['alive']
+    if dev.type != 'cpu':
+        raise ValueError(f'scatter_tail: unsupported device {dev}')
+    out = scatter_tail_plain(packed, layout, state, ray_origin, ray_direction,
+                             hit, event, lam, view, ctx, ghost, integrand, rng,
+                             termination_probability)
+    if profiling.enabled():
+        profiling.count(TAIL_LANES, tail_bins(event, hit, ghost),
+                        bins=TAIL_BINS)
+    return out
+
+
+def tail_lanes(state, ray_origin, ray_direction, hit, event, ctx, ghost,
+               integrand, rng: Rng):
+    """The tail kernel's lane inputs (ops/scatter_tail.py's LANE_INPUTS) by
+    name from scatter's values, each as contiguous rows (a copy only where
+    it is not): the medium event's throughput where there is an event,
+    else the state's; the emission columns where fetch_ctx gathered them
+    (OpenPBR in the type set)."""
+    lanes = dict(lambda0=state['lambda0'], probability=state['probability'],
+                 sample=state['sample'], active_shapes=state['active_shapes'],
+                 origin=ray_origin, direction=ray_direction,
+                 rng_state=rng.state,
+                 **{k: hit[k] for k in ('time', 'shape', 'position', 'normal',
+                                        'tangent', 'bitangent')})
+    lanes.update(zip(('scattered', 's_throughput', 's_probability', 's_valid'),
+                     integrand))
+    if event is None:
+        lanes['throughput'] = state['throughput']
+    else:
+        lanes.update((k, event[k]) for k in (
+            'throughput', 'priority', 'vol_scatter', 'sky_hit', 'vol_origin',
+            'vol_dir', 'vol_throughput', 'vol_probability'))
+    if ghost is not None:
+        lanes['ghost'] = ghost
+    if 'emission_reflectance' in ctx:
+        lanes.update((k, ctx[k]) for k in (
+            'type', 'emission_reflectance', 'emission_luminance'))
+    return {k: v.contiguous() for k, v in lanes.items()}
+
+
+def tail_bins(event, hit, ghost):
+    """Each lane's TAIL_BINS index from the medium event's outputs (None
+    in a medium-free scene), the hit record and the ghost mask (None
+    without opacity)."""
+    if event is None:
+        sky_hit = hit['time'] >= HIT_TIME_LIMIT
+        bins = torch.where(sky_hit, 0, 2)
+    else:
+        bins = torch.where(event['sky_hit'], 0,
+                           torch.where(event['vol_scatter'], 1, 2))
+    if ghost is not None:
+        bins = torch.where(ghost, 3, bins)
+    return bins
+
+
+def scatter_tail_plain(packed, layout, state, ray_origin, ray_direction, hit,
+                       event, lam, view, ctx, ghost, integrand, rng: Rng,
+                       termination_probability):
+    """Scatter's own code after the BSDF sample in plain PyTorch, on any
+    device (basic_scatter.glsl:165-310).
+
+    From the path state, the (3, N) ray, the hit record, the medium event's
+    outputs (`event`, None in a medium-free layout), the (4, N) hero
+    wavelengths `lam`, the tangent-space `view`, the material context, the
+    ghost mask (None without opacity) and the surface integrand (scattered,
+    throughput, probability, valid): the sky's radiance, the observer and
+    the emission into the sample, the surface branch, the active-shape
+    bookkeeping, one draw from `rng` for Russian roulette, the new ray and
+    the three-way merge. Returns (new_state, new_origin, new_direction,
+    alive (N,))."""
+    types = layout.material_types
+    term = torch.tensor(termination_probability, dtype=torch.float32,
+                        device=ray_origin.device)
+    active_shapes = state['active_shapes']           # (LIMIT, N)
+    probability = state['probability']
+    sample = state['sample']                         # (3, N)
+
+    scene_has_medium = layout.scene_has_medium
+    if scene_has_medium:
+        priority = event['priority']
+        throughput = event['throughput']
+        medium_event_mask = event['medium_event']
+        vol_scatter = event['vol_scatter']
+        sky_hit = event['sky_hit']
+    else:
+        priority = torch.amin(active_shapes, dim=0)
+        throughput = state['throughput']
+        medium_event_mask = sky_hit = hit['time'] >= HIT_TIME_LIMIT
+    surface_event = ~medium_event_mask
+
+    # Skybox emission (basic_scatter.glsl:165-172).
+    emission = sample_skybox_radiance(packed, ray_direction, lam,
+                                      layout.has_skybox_texture,
+                                      layout.atlas_size,
+                                      layout.texture_filter_modes,
+                                      layout.atlas_quad_fit)
+    cluster_pdf = torch.clamp(sum4(probability), min=1e-20)
+    observer = sample_standard_observer(lam)  # (3, 4, N)
+    sky_sample = sample + _observe(observer, emission * throughput) / cluster_pdf
+
+    # Surface interaction (basic_scatter.glsl:177-309).
+    hit_exterior = view[2] > 0.0
+    shape_priority = hit['shape']
+    is_real = torch.where(hit_exterior, priority > shape_priority,
+                          priority == shape_priority)
+    if ghost is None:
+        ghost = torch.zeros_like(sky_hit)
+
+    # Surface emission (OpenPBR area lights) on real exterior hits,
+    # before the BSDF extends the path.
+    emission_spec = dispatch.surface_emission(ctx, types)
+    emissive_hit = surface_event & is_real & hit_exterior & ~ghost
+    emit_contrib = _observe(observer, emission_spec * throughput) / cluster_pdf
+    sample = torch.where(emissive_hit, sample + emit_contrib, sample)
+
+    scattered, s_throughput, s_probability, s_valid = integrand
+
+    scale = 1.0 / torch.clamp(max4(s_probability), min=EPSILON)
+    surf_throughput = torch.where(is_real, throughput * s_throughput * scale,
+                                  throughput)
+    surf_probability = torch.where(is_real, probability * s_probability * scale,
+                                   probability)
+    in_dir = torch.where(is_real, scattered, -view)
+    surf_valid = torch.where(is_real, s_valid, torch.ones_like(s_valid))
+
+    # Active-shape list bookkeeping on boundary crossings
+    # (basic_scatter.glsl:266-292). Where no material of the scene can
+    # refract (not has_transmissive) nothing is ever inserted or removed,
+    # so the block is dropped. The first free slot and the first match
+    # are the smallest slot index under the mask; LIMIT where there is
+    # none, which equals no slot (a full list takes no insert).
+    if not layout.has_transmissive:
+        new_active = active_shapes
+    else:
+        crossing = in_dir[2] * view[2] < 0.0
+        entering = crossing & hit_exterior & surface_event
+        leaving = crossing & ~hit_exterior & surface_event
+
+        slots = torch.arange(ACTIVE_SHAPE_LIMIT, dtype=torch.int32,
+                             device=view.device)[:, None]
+        first_none = torch.amin(torch.where(active_shapes == SHAPE_INDEX_NONE,
+                                            slots, ACTIVE_SHAPE_LIMIT), dim=0)
+        new_active = torch.where(entering & (slots == first_none),
+                                 hit['shape'], active_shapes)
+
+        first_match = torch.amin(torch.where(new_active == hit['shape'], slots,
+                                             ACTIVE_SHAPE_LIMIT), dim=0)
+        new_active = torch.where(leaving & (slots == first_match),
+                                 SHAPE_INDEX_NONE, new_active)
+        new_active = torch.where(surface_event & ~ghost, new_active,
+                                 active_shapes)
+
+    # Russian roulette (basic_scatter.glsl:294-298).
+    u_rr = rng.uniform()
+    rr_survive = u_rr >= term
+    surf_probability = surf_probability * (1.0 - term)
+
+    surf_dir = normalize(in_dir[0] * hit['tangent'] + in_dir[1] * hit['bitangent']
+                         + in_dir[2] * hit['normal'])
+    # Self-intersection offset scaled with the hit distance.
+    surf_eps = torch.clamp(1e-4 * hit['time'], min=1e-3)
+    surf_origin = hit['position'] + surf_eps * surf_dir
+
+    # Merge the three branches.
+    def merge(vol, sky, surf):
+        out = torch.where(sky_hit, sky, surf)
+        return (torch.where(vol_scatter, event[vol], out)
+                if scene_has_medium else out)
+
+    new_throughput = merge('vol_throughput', throughput, surf_throughput)
+    new_probability = merge('vol_probability', torch.zeros_like(probability),
+                            surf_probability)
+    new_sample = torch.where(sky_hit, sky_sample, sample)
+    new_origin = merge('vol_origin', ray_origin, surf_origin)
+    new_direction = merge('vol_dir', ray_direction, surf_dir)
+
+    if layout.has_opacity:
+        new_direction = torch.where(ghost, ray_direction, new_direction)
+        new_origin = torch.where(ghost, hit['position'] + surf_eps * ray_direction,
+                                 new_origin)
+        new_throughput = torch.where(ghost, throughput, new_throughput)
+        new_probability = torch.where(ghost, probability, new_probability)
+
+    alive = max4(new_probability) > EPSILON
+    alive &= torch.where(surface_event & ~ghost, surf_valid & rr_survive,
+                         torch.ones_like(alive))
+    alive &= ~sky_hit
+
+    new_state = dict(
+        lambda0=state['lambda0'],
+        throughput=new_throughput,
+        probability=new_probability,
+        sample=new_sample,
+        active_shapes=new_active,
+    )
+    return new_state, new_origin, new_direction, alive

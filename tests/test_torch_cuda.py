@@ -1,7 +1,7 @@
 """Scenes shared by the port's tests, and the port's tests that need a card.
 
-`blob_scene`, `textured_scene`, `two_instance_scene`, `glass_ball_scene`
-and `openpbr_scene` take the scene-model module (and the
+`blob_scene`, `textured_scene`, `two_instance_scene`, `glass_ball_scene`,
+`openpbr_scene` and `opacity_scene` take the scene-model module (and the
 procedural module) of either package, so the JAX package and the port
 build the same scene from the same numbers;
 `flat_mode` compiles a mesh scene's world-flattened tables; `tied_leaf`
@@ -230,6 +230,36 @@ def openpbr_scene(m, p):
                                                     rotation=[np.pi / 2, 0, 0]))
     cam.pinhole.field_of_view_in_degrees = 60.0
     scene.root.scatter_rate = 0.05
+    return scene
+
+
+def opacity_scene(m, p, nearest=True):
+    """A half-transparent diffuse sphere and a nearly transparent metal one
+    on a diffuse plane, under a gradient sky texture (filtered nearest, or
+    bilinear)."""
+    scene = m.Scene()
+    ghost = scene.create_material(MATERIAL_TYPE_BASIC_DIFFUSE,
+                                  base_color=np.asarray([0.6, 0.5, 0.4]),
+                                  opacity=0.5)
+    faint = scene.create_material(MATERIAL_TYPE_BASIC_METAL, base_color=np.asarray([0.9, 0.9, 0.9]),
+                                  roughness=0.1, opacity=0.2)
+    floor = scene.create_material(MATERIAL_TYPE_BASIC_DIFFUSE,
+                                  base_color=np.asarray([0.3, 0.3, 0.3]))
+    scene.create_entity(m.ENTITY_TYPE_SPHERE, material=ghost,
+                        transform=m.Transform(position=[-0.6, 2.5, 0.5]))
+    scene.create_entity(m.ENTITY_TYPE_SPHERE, material=faint,
+                        transform=m.Transform(position=[0.8, 3.0, 0.6],
+                                              scale=0.7))
+    scene.create_entity(m.ENTITY_TYPE_PLANE, material=floor,
+                        transform=m.Transform(position=[0, 0, -0.5]))
+    cam = scene.create_entity(
+        m.ENTITY_TYPE_CAMERA,
+        transform=m.Transform(position=[0, -1.5, 0.4],
+                              rotation=[np.pi / 2, 0, 0]))
+    cam.pinhole.field_of_view_in_degrees = 60.0
+    scene.root.skybox_texture = scene.create_texture(
+        name='sky', type=TEXTURE_TYPE_RADIANCE, pixels=p.gradient_sky_texture(32, 16),
+        enable_nearest_filtering=nearest)
     return scene
 
 
@@ -1996,3 +2026,263 @@ def test_basic_sample_wrapper_rejects_bad_input_on_the_card(cuda):
         with pytest.raises(ValueError):
             basic_sample.basic_sample(args['ctx'], args['view'], *u, types,
                                       where=args['where'], out=args['out'])
+
+
+def _clone(tree):
+    """A copy of a nest of dicts, tuples and lists with every tensor cloned."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree
+
+
+TAIL_ARGS = ('packed', 'layout', 'state', 'ray_origin', 'ray_direction', 'hit',
+             'event', 'lam', 'view', 'ctx', 'ghost', 'integrand', 'rng',
+             'termination_probability')
+
+
+def capture_tail(packed, layout, config, state, term=0.05):
+    """The arguments `scatter` hands `scatter_tail` in one render round of
+    `state` (which the round advances), by name, every tensor cloned and
+    the random state as `rng`."""
+    from path_tracer_tpu_torch.integrator import scatter, wavefront
+
+    captured = []
+    tail = scatter.scatter_tail
+
+    def capture(*args):
+        named = dict(zip(TAIL_ARGS, args))
+        named['rng'] = named['rng'].state
+        captured.append({k: v if k in ('packed', 'layout') else _clone(v)
+                         for k, v in named.items()})
+        return tail(*args)
+
+    scatter.scatter_tail = capture
+    try:
+        wavefront.render_round(packed, layout, config, state, term)
+    finally:
+        scatter.scatter_tail = tail
+    (args,), = [captured]
+    return args
+
+
+def tail_outputs(fn, args, layout=None):
+    """`fn` (scatter_tail or scatter_tail_plain) on captured arguments, with
+    another layout where given: the new state, ray, alive mask and the
+    random state it leaves, by name."""
+    from path_tracer_tpu_torch.core.sampling import Rng
+
+    named = dict(args, rng=Rng(args['rng'].clone()))
+    if layout is not None:
+        named['layout'] = layout
+    path, origin, direction, alive = fn(*(named[k] for k in TAIL_ARGS))
+    return dict(path, origin=origin, direction=direction, alive=alive,
+                rng_state=named['rng'].state)
+
+
+def assert_tail_equal(got, want, what):
+    assert set(got) == set(want), what
+    for key in want:
+        assert same_bits(got[key], want[key]), (
+            what, key, int((got[key] != want[key]).sum()))
+
+
+def tail_bin_counts(args):
+    """The TAIL_BINS counts of captured arguments."""
+    from path_tracer_tpu_torch.integrator import scatter
+
+    counts = torch.bincount(scatter.tail_bins(args['event'], args['hit'],
+                                              args['ghost']), minlength=4)
+    return dict(zip(scatter.TAIL_BINS, counts.tolist()))
+
+
+def tail_case(make, width, height, cuda, rounds=2, seed=6):
+    """A scene compiled on the card and its render state after `rounds`
+    rounds, with its layout and render configuration."""
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.ops.intersect import SceneLayout
+    from path_tracer_tpu_torch.scene.compile import compile_scene
+
+    packed = compile_scene(make(), aspect_ratio=width / height, device=cuda)
+    layout = SceneLayout.from_packed(packed)
+    config = wavefront.RenderConfig(width=width, height=height)
+    state = wavefront.reset(packed, config, seed=seed)
+    for _ in range(rounds):
+        wavefront.render_round(packed, layout, config, state, 0.05)
+    return packed, layout, config, state
+
+
+def _generic(make):
+    def generic():
+        scene = make()
+        scene.compile_generic = True
+        return scene
+    return generic
+
+
+# The scenes whose rounds the tail kernel is held to: each benchmark cell's
+# (the Cornell box: medium, OpenPBR emission, bookkeeping, no sky texture;
+# one_weekend: a sky texture and glass; next_week: volume lanes and
+# emission; spd_tetra: medium-free under a uniform sky), the OpenPBR scene
+# (fog, nested shapes, emitters), the glass ball (whose medium scatters),
+# the textured scene (sky sampling through the quad table), the opacity
+# scene (ghosts, a sky filtered nearest) and the generic layout with sky
+# sampling.
+TAIL_CASES = {
+    'cornell': (lambda: cell_scene('cornell_box.offline_1440x1440'), 96, 96),
+    'one_weekend': (one_weekend_scene, 120, 68),
+    'next_week': (lambda: cell_scene('next_week_final.offline_800x800_w10'),
+                  96, 96),
+    'spd_tetra': (lambda: cell_scene('spd_tetra.offline_1440x1440_w4'), 96, 96),
+    'openpbr': (lambda: openpbr_scene(*_scene_modules()), 64, 32),
+    'glass_ball': (lambda: glass_ball_scene(*_scene_modules()), 64, 32),
+    'textured': (lambda: textured_scene(*_scene_modules()), 64, 32),
+    'opacity': (lambda: opacity_scene(*_scene_modules()), 64, 32),
+    'generic': (_generic(lambda: textured_scene(*_scene_modules())), 64, 32),
+}
+
+
+@pytest.mark.parametrize('case', sorted(TAIL_CASES))
+def test_scatter_tail_kernel_matches_plain_version(cuda, case):
+    """csrc/scatter_tail.cu, as `scatter` launches it in a render round,
+    against scatter_tail_plain on the card on the same inputs, bit for bit
+    in every output of every lane and in the random state it leaves, with
+    tracing off and on (the kernel's two instantiations); one launch a
+    round, and while tracing its lane bins equal those of the inputs and
+    sum to the lanes."""
+    from path_tracer_tpu_torch.integrator import scatter
+
+    make, width, height = TAIL_CASES[case]
+    packed, layout, config, state = tail_case(make, width, height, cuda)
+    seen = dict.fromkeys(scatter.TAIL_BINS, 0)
+    for traced in (False, True):
+        args = capture_tail(packed, layout, config, state)
+        want = tail_outputs(scatter.scatter_tail_plain, args)
+        profiling.reset()
+        with profiling.tracing() if traced else contextlib.nullcontext():
+            got = tail_outputs(scatter.scatter_tail, args)
+            counted = profiling.counters()
+        assert counted['kernel.scatter_tail'] == 1
+        assert_tail_equal(got, want, (case, traced))
+        bins = tail_bin_counts(args)
+        assert sum(bins.values()) == width * height
+        if traced:
+            assert counted[scatter.TAIL_LANES] == bins
+        else:
+            assert scatter.TAIL_LANES not in counted
+        for k, v in bins.items():
+            seen[k] += v
+    assert seen['surface'] > 0
+    assert (seen['volume'] > 0) == (
+        case in ('openpbr', 'next_week', 'glass_ball')), seen
+    assert (seen['ghost'] > 0) == (case == 'opacity'), seen
+    if case in ('one_weekend', 'spd_tetra', 'textured', 'opacity'):
+        assert seen['sky'] > 0, seen
+
+
+# The sky's tables and filters: (atlas_quad_fit, texture_filter_modes).
+SKY_LOOKUPS = list(itertools.product(
+    ('quad', 'pair', False), ((True, False), (False, True), (True, True))))
+
+
+@pytest.mark.parametrize('nearest', [False, True])
+def test_scatter_tail_kernel_matches_plain_version_in_every_sky_lookup(
+        cuda, nearest):
+    """The kernel against scatter_tail_plain on the opacity scene's round
+    (ghosts, a sky texture that hits most lanes), its layout given each
+    atlas table and each set of filter modes, with the sky texture's own
+    flag nearest or bilinear; and without the texture (the default
+    spectrum), without opacity on the lanes that are no ghosts' and with
+    transmissive bookkeeping forced on."""
+    from path_tracer_tpu_torch.integrator import scatter
+
+    packed, layout, config, state = tail_case(
+        lambda: opacity_scene(*_scene_modules(), nearest=nearest), 64, 32,
+        cuda)
+    args = capture_tail(packed, layout, config, state)
+    assert tail_bin_counts(args)['sky'] > 0
+    variants = [dataclasses.replace(layout, atlas_quad_fit=mode,
+                                    texture_filter_modes=filters)
+                for mode, filters in SKY_LOOKUPS]
+    variants += [dataclasses.replace(layout, has_skybox_texture=False),
+                 dataclasses.replace(layout, has_transmissive=True)]
+    for variant in variants:
+        got = tail_outputs(scatter.scatter_tail, args, variant)
+        want = tail_outputs(scatter.scatter_tail_plain, args, variant)
+        assert_tail_equal(got, want, (variant.atlas_quad_fit,
+                                      variant.texture_filter_modes,
+                                      variant.has_skybox_texture))
+
+
+def test_scatter_tail_on_the_main_path(cuda, monkeypatch):
+    """A 4-round render on the card launches the kernel once a round and
+    equals, bit for bit, the same render with the tail in plain PyTorch;
+    while tracing, the kernel's lane bins over the rounds sum to the
+    lanes times the rounds."""
+    from path_tracer_tpu_torch.integrator import scatter, wavefront
+
+    packed, layout, config, _ = tail_case(
+        lambda: openpbr_scene(*_scene_modules()), 64, 32, cuda, rounds=0)
+
+    def render(traced=False):
+        state = wavefront.reset(packed, config, seed=9)
+        profiling.reset()
+        with profiling.tracing() if traced else contextlib.nullcontext():
+            for _ in range(4):
+                wavefront.render_round(packed, layout, config, state, 0.05)
+            counted = profiling.counters()
+        return state, counted
+
+    kernel, counted = render(traced=True)
+    assert counted['kernel.scatter_tail'] == 4
+    assert sum(counted[scatter.TAIL_LANES].values()) == 4 * 64 * 32
+    monkeypatch.setattr(scatter, 'scatter_tail', scatter.scatter_tail_plain)
+    plain, counted = render()
+    assert 'kernel.scatter_tail' not in counted
+    for key in ('origin', 'direction', 'rng_state'):
+        assert same_bits(kernel[key], plain[key]), key
+    for part in ('path', 'accum'):
+        for key in plain[part]:
+            assert same_bits(kernel[part][key], plain[part][key]), (part, key)
+
+
+def test_scatter_tail_wrapper_rejects_bad_input(cuda):
+    """The wrapper checks device, dtype, shape and layout of every tensor
+    it hands the kernel before it launches."""
+    from path_tracer_tpu_torch.integrator import scatter
+    from path_tracer_tpu_torch.ops import scatter_tail
+
+    packed, layout, config, state = tail_case(
+        lambda: glass_ball_scene(*_scene_modules()), 32, 16, cuda, rounds=1)
+    args = capture_tail(packed, layout, config, state)
+    lanes = {}
+
+    def capture(packed, layout, given, term, stats=None):
+        lanes.update(given)
+        return launch(packed, layout, given, term, stats=stats)
+
+    launch = scatter_tail.scatter_tail
+    scatter_tail.scatter_tail = capture
+    try:
+        tail_outputs(scatter.scatter_tail, args)
+    finally:
+        scatter_tail.scatter_tail = launch
+    launch(packed, layout, lanes, 0.05)
+    bad = (dict(time=lanes['time'].double()),
+           dict(shape=lanes['shape'].float()),
+           dict(origin=lanes['origin'].cpu()),
+           dict(normal=lanes['normal'][:2]),
+           dict(probability=lanes['probability'][:, :128]),
+           dict(direction=lanes['direction'].T.contiguous().T),
+           dict(s_valid=lanes['s_valid'].to(torch.int32)),
+           dict(vol_dir=lanes['vol_dir'][:, :-1]),
+           dict(rng_state=lanes['rng_state'].to(torch.int32)))
+    for fields in bad:
+        with pytest.raises(ValueError):
+            launch(packed, layout, dict(lanes, **fields), 0.05)
+    with pytest.raises(ValueError):
+        launch(packed, layout, lanes, 0.05,
+               stats=torch.zeros(3, dtype=torch.int64, device=cuda))

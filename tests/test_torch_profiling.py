@@ -199,10 +199,10 @@ def test_render_round_span_tree_and_counts(openpbr_round):
                                 'pt.trace.attributes'}
     assert layout.scene_has_medium
     assert {'pt.scatter.medium', 'pt.scatter.material',
-            'pt.scatter.bsdf_sample'} <= tree['pt.scatter']
+            'pt.scatter.bsdf_sample', 'pt.scatter.tail'} <= tree['pt.scatter']
     assert tree['pt.scatter'] <= {'pt.scatter.medium', 'pt.scatter.material',
                                   'pt.scatter.bsdf_sample',
-                                  'pt.scatter.bsdf_eval'}
+                                  'pt.scatter.bsdf_eval', 'pt.scatter.tail'}
     assert {'pt.model.openpbr.sample',
             'pt.model.basic_translucent.sample'} <= tree['pt.scatter.bsdf_sample']
     assert sum(r[0] == 'pt.round' for r in recs) == 1
@@ -216,6 +216,7 @@ def test_render_round_span_tree_and_counts(openpbr_round):
                             'basic_translucent', 'openpbr'}
     assert 0 < by_type['openpbr'] and sum(by_type.values()) <= n
     assert 0 <= counted['pt.respawn.lanes'] <= n
+    assert sum(counted['pt.scatter.tail.lanes'].values()) == n
 
 
 def test_round_state_is_bit_identical_with_tracing_on_and_off(openpbr_round):
